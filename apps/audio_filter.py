@@ -11,13 +11,13 @@ import sys
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from recfilter_tpu.utils.platform import apply_platform_env
+from recfilter.utils.platform import apply_platform_env
 
 apply_platform_env()
 
-import recfilter_tpu as rf
-from recfilter_tpu.apps import audio_filter_biquads, audio_filter_high_order
-from recfilter_tpu.utils.timing import Log, throughput
+import recfilter as rf
+from recfilter.apps import audio_filter_biquads, audio_filter_high_order
+from recfilter.utils.timing import Log, throughput
 
 
 def main():

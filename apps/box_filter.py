@@ -9,12 +9,12 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from recfilter_tpu.utils.platform import apply_platform_env
+from recfilter.utils.platform import apply_platform_env
 
 apply_platform_env()
 
-import recfilter_tpu as rf
-from recfilter_tpu.apps import box
+import recfilter as rf
+from recfilter.apps import box
 
 
 def main():
@@ -22,7 +22,7 @@ def main():
     p.add_argument("--iterations-of-box", type=int, default=1, choices=[1, 3, 6])
     p.add_argument("--width", "-w", type=int, default=4096)
     p.add_argument("--tile", "-t", type=int, default=0,
-                   help="tile width (0 = auto: 128 on TPU, 32 on CPU)")
+                   help="tile width (0 = auto: planner.default_tile_width)")
     p.add_argument("--iter", "-i", type=int, default=1)
     p.add_argument("--radius", "-B", type=int, default=5)
     p.add_argument("--nocheck", action="store_true")
@@ -56,7 +56,7 @@ def main():
         out = jfn(img)
     jax.block_until_ready(out)
     ms = (time.perf_counter() - t0) * 1000
-    from recfilter_tpu.utils import timing
+    from recfilter.utils import timing
 
     print(f"box{nb}: {ms:.3f} ms, "
           f"{timing.throughput(ms, w * w * ns.iter):.2f} MiP/s")

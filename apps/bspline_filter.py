@@ -8,13 +8,13 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from recfilter_tpu.utils.platform import apply_platform_env
+from recfilter.utils.platform import apply_platform_env
 
 apply_platform_env()
 
-import recfilter_tpu as rf
-from recfilter_tpu import scan_core
-from recfilter_tpu.apps import bspline
+import recfilter as rf
+from recfilter import scan_core
+from recfilter.apps import bspline
 
 
 def main():
@@ -23,7 +23,7 @@ def main():
                    choices=["bicubic", "biquintic", "biquintic_cascaded"])
     p.add_argument("--width", "-w", type=int, default=4096)
     p.add_argument("--tile", "-t", type=int, default=0,
-                   help="tile width (0 = auto: 128 on TPU, 32 on CPU)")
+                   help="tile width (0 = auto: planner.default_tile_width)")
     p.add_argument("--iter", "-i", type=int, default=1)
     p.add_argument("--nocheck", action="store_true")
     ns = p.parse_args()

@@ -7,13 +7,13 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from recfilter_tpu.utils.platform import apply_platform_env
+from recfilter.utils.platform import apply_platform_env
 
 apply_platform_env()
 
-import recfilter_tpu as rf
-from recfilter_tpu.apps import summed_table
-from recfilter_tpu import scan_core
+import recfilter as rf
+from recfilter.apps import summed_table
+from recfilter import scan_core
 
 
 def main():
@@ -21,8 +21,9 @@ def main():
     w = args.width or 4096
     if np.issubdtype(np.dtype(args.dtype), np.integer):
         # integer SAT: full-range random content, wrap semantics — rides
-        # the wrapping additive kernels (kernels/int_scan.py); matches the
-        # reference's type-invariance doctrine (test_type_invariance.cpp)
+        # the wrapping int32 cumulative sums (dimfuse.int_unit_dim_pass);
+        # matches the reference's type-invariance doctrine
+        # (test_type_invariance.cpp)
         image = rf.generate_random_image(
             w, w, dtype=args.dtype, lo=-1000, hi=1000, seed=1)
     else:

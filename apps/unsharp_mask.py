@@ -7,20 +7,20 @@ import time
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from recfilter_tpu.utils.platform import apply_platform_env
+from recfilter.utils.platform import apply_platform_env
 
 apply_platform_env()
 
-import recfilter_tpu as rf
-from recfilter_tpu.apps import unsharp_mask
-from recfilter_tpu.utils import timing
+import recfilter as rf
+from recfilter.apps import unsharp_mask
+from recfilter.utils import timing
 
 
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--width", "-w", type=int, default=4096)
     p.add_argument("--tile", "-t", type=int, default=0,
-                   help="tile width (0 = auto: 128 on TPU, 32 on CPU)")
+                   help="tile width (0 = auto: planner.default_tile_width)")
     p.add_argument("--iter", "-i", type=int, default=1)
     p.add_argument("--naive", action="store_true",
                    help="unfused variant (unsharp_mask_naive.cpp)")

@@ -11,13 +11,13 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from recfilter_tpu.utils.platform import apply_platform_env
+from recfilter.utils.platform import apply_platform_env
 
 apply_platform_env()
 
-import recfilter_tpu as rf
-from recfilter_tpu.apps.gaussian import gaussian_3xy_rgb
-from recfilter_tpu.utils import image_io
+import recfilter as rf
+from recfilter.apps.gaussian import gaussian_3xy_rgb
+from recfilter.utils import image_io
 
 
 def main():
@@ -51,8 +51,7 @@ def main():
     chw = np.moveaxis(img, -1, 0).astype(np.float32)
 
     # One overlapped 3rd-order filter over the (3, h, w) channel batch —
-    # both rotated passes run the per-slice completion kernels with
-    # cross-pass tails chaining (see apps.gaussian_3xy_rgb).
+    # the channel axis rides both rotated passes (see apps.gaussian_3xy_rgb).
     out = gaussian_3xy_rgb(w, h, ns.tile, sigma=ns.sigma).as_func()(chw)
 
     result = np.moveaxis(np.asarray(out), 0, -1)

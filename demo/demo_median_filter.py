@@ -11,16 +11,16 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from recfilter_tpu.utils.platform import apply_platform_env
+from recfilter.utils.platform import apply_platform_env
 
 apply_platform_env()
 
 import jax
 import jax.numpy as jnp
 
-from recfilter_tpu import iir
-from recfilter_tpu.apps.gaussian import gaussian_3x_3y
-from recfilter_tpu.utils import image_io
+from recfilter import iir
+from recfilter.apps.gaussian import gaussian_3x_3y
+from recfilter.utils import image_io
 
 NUM_BINS = 15
 BIN_WIDTH = 1.0 / NUM_BINS

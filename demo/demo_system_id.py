@@ -3,7 +3,7 @@
 
 Pass a noise signal through an "unknown" 2nd-order audio IIR filter
 (biquad), then recover its coefficients by gradient descent through the
-differentiable tiled executor (`recfilter_tpu.learnable`): a trainable
+differentiable tiled executor (`recfilter.learnable`): a trainable
 biquad is fitted so model(input) ≈ observed output.
 
 Demonstrates that the tiled scan algebra is differentiable end-to-end with
@@ -17,7 +17,7 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from recfilter_tpu.utils.platform import apply_platform_env
+from recfilter.utils.platform import apply_platform_env
 
 apply_platform_env()
 
@@ -25,8 +25,8 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from recfilter_tpu import learnable
-from recfilter_tpu.spec import Dim, FilterSpec, Scan
+from recfilter import learnable
+from recfilter.spec import Dim, FilterSpec, Scan
 
 
 def main():

@@ -9,12 +9,12 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from recfilter_tpu.utils.platform import apply_platform_env
+from recfilter.utils.platform import apply_platform_env
 
 apply_platform_env()
 
-from recfilter_tpu.apps import unsharp_mask
-from recfilter_tpu.utils import image_io
+from recfilter.apps import unsharp_mask
+from recfilter.utils import image_io
 
 
 def rgb_to_yuv(img):

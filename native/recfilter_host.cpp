@@ -1,13 +1,13 @@
-// recfilter_host — native host-side math for recfilter_tpu.
+// recfilter_host — native host-side math for recfilter.
 //
 // C++ rebuild of the reference's host-side numeric kit: the closure-matrix
 // builders (lib/coefficients.cpp:8-128), the tail-weight/carry-chain algebra
 // (lib/split.cpp:152-203), and the IIR coefficient derivation
 // (lib/iir_coeff.cpp:38-177). The Python package loads this through ctypes
-// (recfilter_tpu/utils/native.py) as the fast path for trace-time
+// (recfilter/utils/native.py) as the fast path for trace-time
 // precomputation; numpy remains the fallback and the source of truth for
 // tests. All math is double precision; the semantics match
-// recfilter_tpu/coeffs.py exactly (including the updated-value clamp model —
+// recfilter/coeffs.py exactly (including the updated-value clamp model —
 // see the note in coeffs.impulse_matrix).
 //
 // Build: make -C native   →  librecfilter_host.so

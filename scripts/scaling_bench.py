@@ -1,10 +1,11 @@
 #!/usr/bin/env python
 """Scaling-efficiency benchmark: samples/s at mesh sizes 1..N.
 
-BASELINE.md target: ≥85% samples/s scaling efficiency at N hosts. With one
-physical chip in this environment, the harness runs on the virtual CPU mesh
-by default (RECFILTER_PLATFORM=cpu RECFILTER_CPU_DEVICES=8) to exercise the
-real sharded program; on a pod slice the same script measures real scaling.
+BASELINE.md target: ≥85% samples/s scaling efficiency at N devices. One
+process drives every GPU of the host (one process per card: each JAX
+process reserves most of a card's memory); on the virtual CPU mesh
+(RECFILTER_PLATFORM=cpu RECFILTER_CPU_DEVICES=8) it exercises the sharded
+program without a card.
 
 Methodology: batch of images data-parallel over the mesh (+ optional seq
 sharding of the scan dim), slope-timed inside one jit.
@@ -17,7 +18,7 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from recfilter_tpu.utils.platform import apply_platform_env
+from recfilter.utils.platform import apply_platform_env
 
 apply_platform_env()
 
@@ -33,17 +34,17 @@ def main():
                    help="which route to sweep: data-parallel (default), "
                         "pure sequence sharding of the x scan dim, 2-D "
                         "sequence sharding (both scan dims), or the "
-                        "integer unit-kernel route (data-parallel)")
+                        "integer unit-scan route (data-parallel)")
     ns = p.parse_args()
 
     import jax
     import jax.numpy as jnp
     import numpy as np
 
-    from recfilter_tpu import iir
-    from recfilter_tpu.parallel import sharding
-    from recfilter_tpu.planner import Plan
-    from recfilter_tpu.spec import Dim, FilterSpec, Scan
+    from recfilter import iir
+    from recfilter.parallel import sharding
+    from recfilter.planner import Plan
+    from recfilter.spec import Dim, FilterSpec, Scan
 
     ndev = len(jax.devices())
     w = ns.width
@@ -74,7 +75,7 @@ def main():
             np.random.default_rng(0).standard_normal((ns.batch, w, w)) * 0.01,
             dtype=jnp.float32,
         )
-    plan = Plan(interpret=jax.default_backend() != "tpu")
+    plan = Plan()
 
     def rate_for(d):
         if ns.mode == "seq":
@@ -122,8 +123,8 @@ def main():
     if cpu:
         print(
             "NOTE: virtual CPU devices share physical cores. Per-device "
-            "compute does NOT scale here, so the pod-style 'efficiency vs "
-            "d x ideal' column is not meaningful; the meaningful CPU-mesh "
+            "compute does NOT scale here, so the 'efficiency vs d x ideal' "
+            "column is not meaningful; the meaningful CPU-mesh "
             "number is 'speedup' (same global batch, 1 -> d devices): the "
             "sharded program beating the single-device program bounds the "
             "collective/carry-exchange overhead from above."

@@ -5,9 +5,9 @@ integration tests)."""
 import numpy as np
 import pytest
 
-import recfilter_tpu as rf
-from recfilter_tpu import iir, scan_core
-from recfilter_tpu.apps import (
+import recfilter as rf
+from recfilter import iir, scan_core
+from recfilter.apps import (
     audio_filter_biquads,
     audio_filter_high_order,
     bicubic,
@@ -24,7 +24,7 @@ from recfilter_tpu.apps import (
     summed_table,
     unsharp_mask,
 )
-from recfilter_tpu.apps.gaussian import run_cascade
+from recfilter.apps.gaussian import run_cascade
 
 
 def test_summed_table_matches_oracle():
@@ -99,7 +99,7 @@ def test_gaussian_3xy_matches_true_gaussian():
 def test_gaussian_3xy_rgb_matches_per_channel():
     """The RGB variant (leading channel axis, per-slice kernels + chained
     tails) must equal the 2-D filter applied to each channel plane."""
-    from recfilter_tpu.apps import gaussian_3xy_rgb
+    from recfilter.apps import gaussian_3xy_rgb
 
     w, sigma = 48, 3.0
     chw = np.stack([
@@ -182,13 +182,12 @@ def test_unsharp_mask_fused_equals_naive():
 
 
 def test_unsharp_mask_route_gate():
-    """USM's fused builder must take the merged fuse_cascade route (in-VMEM
-    kernel epilogue) in every kernel-riding mode — px* AND throughput mode
-    ("default") — and the staged epilogue only in the plain einsum grades.
-    On chip the staged route's combine cannot fuse into the last stage's
-    rotation-restoring transposed-output einsum (0.66 vs 0.26 ms at 4K
-    default, ``scripts/usm_route_probe.py``)."""
-    from recfilter_tpu import planner
+    """USM's fused builder must take the merged fuse_cascade route (the
+    combine as the merged filter's epilogue) at the px grades AND in
+    throughput mode ("default"), and the staged epilogue only in the plain
+    einsum grades: the staged route's combine cannot fuse into the last
+    stage's rotation-restoring transposed-output einsum."""
+    from recfilter import planner
 
     w = 32
     img = rf.generate_random_image(w, w, lo=0, hi=1, seed=8)
@@ -218,7 +217,7 @@ def test_dog_matches_triple_box_oracle_interior():
     """DoG = box³(B1) - box³(B2) in the interior (borders are undefined by
     the apps' zeroed-margin contract, ``box_filter.h:9-11``; the tolerance
     reflects f32 cancellation in the dual-radius subtraction)."""
-    from recfilter_tpu.apps.box import box_oracle
+    from recfilter.apps.box import box_oracle
 
     w, B1, B2 = 160, 5, 9
     img = rf.generate_random_image(w, w, lo=0, hi=1, seed=21)
@@ -245,7 +244,7 @@ def test_dog_fir_matches_triple_box_oracle_full_image():
     windows equal zero-fill convolution at EVERY pixel — including the
     tile-edge and array-edge paths, which the interior test above cannot
     see."""
-    from recfilter_tpu.apps.box import box_oracle
+    from recfilter.apps.box import box_oracle
 
     w, B1, B2 = 160, 5, 9
     img = rf.generate_random_image(w, w, lo=0, hi=1, seed=22)
@@ -348,7 +347,7 @@ def test_audio_biquads_overlap_equals_cascade():
     F = audio_filter_biquads(n, nb, 100, overlapped=True)
     out = np.asarray(F.realize(img))
 
-    from recfilter_tpu.spec import Dim, FilterSpec, Scan
+    from recfilter.spec import Dim, FilterSpec, Scan
 
     one = FilterSpec(
         "bq", (Dim("x", n),), (Scan(0, True, 1.0, (0.01, 0.01)),)

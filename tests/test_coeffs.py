@@ -10,9 +10,9 @@ must solve the cross-tile recurrence exactly.
 import numpy as np
 import pytest
 
-from recfilter_tpu import coeffs
-from recfilter_tpu.scan_core import oracle_apply_scan
-from recfilter_tpu.spec import BorderMode
+from recfilter import coeffs
+from recfilter.scan_core import oracle_apply_scan
+from recfilter.spec import BorderMode
 
 CASES = [
     (1.0, [1.0]),  # summed-area table

@@ -5,8 +5,8 @@ mix, causality pattern, and border mode."""
 import numpy as np
 import pytest
 
-from recfilter_tpu import dimfuse, scan_core
-from recfilter_tpu.spec import BorderMode, Dim, FilterSpec, Scan
+from recfilter import dimfuse, scan_core
+from recfilter.spec import BorderMode, Dim, FilterSpec, Scan
 
 
 def _img(*shape, seed=0):
@@ -92,7 +92,7 @@ def test_middle_axis_and_3d():
 
 
 def test_apply_filter_fused_2d_gaussian_clamped():
-    from recfilter_tpu import iir
+    from recfilter import iir
 
     w = iir.gaussian_weights(2.0, 3)
     dims = (Dim("y", 24), Dim("x", 24))
@@ -112,7 +112,7 @@ def test_apply_filter_fused_2d_gaussian_clamped():
 
 
 def test_matches_per_scan_einsum_backend():
-    from recfilter_tpu import tiling
+    from recfilter import tiling
 
     dims = (Dim("y", 16), Dim("x", 16))
     scans = (
@@ -129,7 +129,7 @@ def test_matches_per_scan_einsum_backend():
 
 def test_associative_chain_solve_matches_matmul_solve():
     """Large-n path (associative_scan) must equal the block-Toeplitz path."""
-    import recfilter_tpu.dimfuse as df
+    import recfilter.dimfuse as df
 
     scans = [
         Scan(1, True, 1.0, (0.5, 0.25)),
@@ -417,13 +417,12 @@ def test_bf16_rotated_fallback_keeps_f32_carries():
     [("f32x3", 1e-4), ("f32x4", 8e-5), ("f32x6", 1e-5)],
 )
 def test_compensated_split_precision_modes(mode, bound):
-    """The compensated split-bf16 modes (VERDICT r1 #1) must hold their
-    documented error bounds against the float64 oracle. On CPU the bf16
-    chunk einsums upcast-and-accumulate in f32 — the same arithmetic the
-    single-pass bf16 MXU performs on bf16-exact operands — so the chunk
-    representation error (the dominant term) is faithfully measured here;
-    the on-chip sweep (scripts/precision_sweep.py) confirms the same
-    bounds on the TPU."""
+    """The compensated split-bf16 modes must hold their documented error
+    bounds against the float64 oracle. On CPU the bf16 chunk einsums
+    upcast-and-accumulate in f32 — the same arithmetic the tensor cores
+    perform on bf16-exact operands — so the chunk representation error
+    (the dominant term) is faithfully measured here; chip_smoke.py
+    measures the grades on the card."""
     scans = [
         Scan(1, True, 0.9, (0.6, 0.25, -0.1)),
         Scan(1, False, 1.1, (0.5, 0.2, 0.05)),
@@ -454,9 +453,8 @@ def test_split_input_three_chunks_exact():
                          [("px3", 1e-4), ("px4", 8e-5), ("px6", 2e-6)])
 @pytest.mark.parametrize("rot_axes", [1, 2])
 def test_pallas_completion_precision_modes(mode, bound, rot_axes):
-    """The px3/px4 modes (VMEM-split completion kernel) hold their error
-    bounds and match the einsum path's layouts for both in-place and
-    rotated emits (interpret mode on CPU; on-chip parity in pytest -m tpu)."""
+    """The px3/px4/px6 grades hold their error bounds for both in-place and
+    rotated emits (card parity: chip_smoke.py)."""
     import jax.numpy as jnp
 
     scans = [
@@ -465,7 +463,7 @@ def test_pallas_completion_precision_modes(mode, bound, rot_axes):
     ]
     spec = FilterSpec(
         "PX", (Dim("y", 64), Dim("x", 256)), tuple(scans),
-        tile_widths=(0, 128),  # T=128: the kernel's Mosaic lane tile
+        tile_widths=(0, 128),  # T=128: the card's auto tile width
     )
     x = _img(64, 256, seed=7)
     got = np.asarray(
@@ -484,14 +482,12 @@ def test_pallas_completion_precision_modes(mode, bound, rot_axes):
 @pytest.mark.parametrize("mode,bound", [("px3", 1e-4), ("px6", 2e-6)])
 def test_px_rotated_leading_channel_per_slice_kernels(mode, bound):
     """Rotated emit with a leading (non-scanned) channel group — dog_sat's
-    SAT2x/SAT2y geometry — must route through the per-slice completion
-    kernels, not the split-einsum fallback (measured 2x slower on chip:
-    the transposed-output einsums cannot fuse the chunk products). Checks
-    per-slice kernel invocation, oracle parity, and f32-grade gradients."""
+    SAT2x/SAT2y geometry: oracle parity, no pallas_call in the traced
+    program, and f32-grade gradients."""
     import jax
     import jax.numpy as jnp
 
-    from recfilter_tpu.kernels import completion as completion_mod
+    from chip_smoke import has_pallas_call
 
     scans = [Scan(2, True, 0.9, (0.6, 0.25, -0.1))]
     spec = FilterSpec(
@@ -500,26 +496,12 @@ def test_px_rotated_leading_channel_per_slice_kernels(mode, bound):
     )
     x = _img(2, 64, 256, seed=11)
 
-    calls = {"tails": 0}
-    orig = completion_mod.tails_pass
+    def run(v):
+        return dimfuse.apply_filter_rotated(
+            spec, v, rot_axes=2, matmul_precision=mode)
 
-    def spy(*a, **k):
-        calls["tails"] += 1
-        return orig(*a, **k)
-
-    completion_mod.tails_pass = spy
-    try:
-        got = np.asarray(
-            dimfuse.apply_filter_rotated(
-                spec, jnp.asarray(x), rot_axes=2, matmul_precision=mode,
-            )
-        )
-    finally:
-        completion_mod.tails_pass = orig
-    # unchained single-dim stage: one kernel pipeline per slice (the
-    # chained multi-pass form uses one vmapped call instead — see
-    # test_px_tails_chaining_leading_channel)
-    assert calls["tails"] == 2, "expected one kernel pipeline per slice"
+    assert not has_pallas_call(jax.make_jaxpr(run)(jnp.asarray(x)))
+    got = np.asarray(run(jnp.asarray(x)))
     assert got.shape == (2, 256, 64)  # rotated emit: (c, x, y)
     oracle_scans = [Scan(1, True, 0.9, (0.6, 0.25, -0.1))]  # axis within a slice
     want = np.stack([_oracle_dim(x[p], oracle_scans, BorderMode.ZERO).T
@@ -527,8 +509,7 @@ def test_px_rotated_leading_channel_per_slice_kernels(mode, bound):
     scale = np.abs(want).max()
     assert np.abs(got - want).max() <= bound * scale
 
-    # gradients: the per-slice kernels' custom VJPs must compose through
-    # the stack/reshape emit at f32 grade
+    # gradients at f32 grade through the rotated emit
     ct = jnp.asarray(_img(2, 256, 64, seed=12) * 0.1)
 
     def loss(m):
@@ -542,24 +523,11 @@ def test_px_rotated_leading_channel_per_slice_kernels(mode, bound):
 
 
 
-@pytest.fixture
-def old_px_chain():
-    """Pin the 5-touch rotation-chained px pipeline: these tests verify its
-    cross-pass tails-chaining / in-kernel-epilogue mechanics specifically.
-    Trailing-2-D px filters otherwise route through the 3-touch overlapped
-    path (dimfuse._OVERLAP_PX_2D — covered in test_overlap2d)."""
-    prev = dimfuse._OVERLAP_PX_2D
-    dimfuse._OVERLAP_PX_2D = False
-    yield
-    dimfuse._OVERLAP_PX_2D = prev
-
 @pytest.mark.parametrize("border", [BorderMode.ZERO, BorderMode.CLAMP])
 @pytest.mark.parametrize("mode,bound", [("px3", 1e-4), ("px6", 2e-6)])
-def test_px_tails_chaining_two_dims(mode, bound, border, old_px_chain):
-    """The 2-D px chain: the first pass's completion kernel extracts the
-    second pass's tails from the blocks it emits (``next_tails``), and the
-    second pass consumes them via ``tails_in`` — 2 HBM touches for pass 2.
-    Must match the per-pass oracle to the mode's bound (interpret mode)."""
+def test_px_tails_chaining_two_dims(mode, bound, border):
+    """The 2-D rotation chain at the px grades (T=128, both borders) must
+    match the per-pass oracle to the mode's bound."""
     import jax.numpy as jnp
 
     scans = [
@@ -571,60 +539,20 @@ def test_px_tails_chaining_two_dims(mode, bound, border, old_px_chain):
         tile_widths=(128, 128), border=border,
     )
     x = _img(256, 384, seed=13)
-    from recfilter_tpu.kernels import completion as _completion
-
-    calls = []
-    orig = _completion.tails_pass
-
-    def counting(*a, **k):
-        calls.append(1)
-        return orig(*a, **k)
-
-    _completion.tails_pass = counting
-    try:
-        got = np.asarray(
-            dimfuse.apply_filter_fused(
-                spec, jnp.asarray(x), matmul_precision=mode
-            )
-        )
-        # The moments-first variant derives BOTH passes' tails from one
-        # read (zero tails_pass calls); the shipping in-kernel chain pays
-        # exactly one tails read. Cover whichever is enabled plus the
-        # other variant explicitly.
-        expect = 0 if dimfuse._MOMENTS_CHAIN else 1
-        assert len(calls) == expect
-        calls.clear()
-        old = dimfuse._MOMENTS_CHAIN
-        dimfuse._MOMENTS_CHAIN = not old
-        try:
-            got2 = np.asarray(
-                dimfuse.apply_filter_fused(
-                    spec, jnp.asarray(x), matmul_precision=mode
-                )
-            )
-        finally:
-            dimfuse._MOMENTS_CHAIN = old
-        assert len(calls) == (1 - expect)
-    finally:
-        _completion.tails_pass = orig
-    want = x.astype(np.float64)
-    from recfilter_tpu import scan_core
-
-    want = scan_core.oracle_apply(spec, want)
+    got = np.asarray(
+        dimfuse.apply_filter_fused(spec, jnp.asarray(x), matmul_precision=mode)
+    )
+    want = scan_core.oracle_apply(spec, x.astype(np.float64))
     scale = np.abs(want).max()
     assert np.abs(got - want).max() <= bound * scale
-    assert np.abs(got2 - want).max() <= bound * scale
 
 
 @pytest.mark.parametrize("border", [BorderMode.ZERO, BorderMode.CLAMP])
 @pytest.mark.parametrize("mode,bound", [("px3", 1e-4), ("px6", 2e-6)])
-def test_px_tails_chaining_leading_channel(mode, bound, border, old_px_chain):
+def test_px_tails_chaining_leading_channel(mode, bound, border):
     """The 2-D px chain with a leading channel group (RGB pipelines): both
-    rotated passes run the vmapped per-slice completion kernels and the
-    cross-pass tails chain composes per slice — pass 1 extracts pass 2's
-    tails from each slice's emitted blocks (P-major along the line axis),
-    and pass 2 consumes them sliced, so only pass 1 pays a tails read.
-    Oracle parity per channel to the mode's bound (interpret mode)."""
+    rotated passes carry the channel axis as an einsum batch axis. Oracle
+    parity per channel to the mode's bound."""
     import jax.numpy as jnp
 
     P = 3
@@ -637,27 +565,9 @@ def test_px_tails_chaining_leading_channel(mode, bound, border, old_px_chain):
         tuple(scans), tile_widths=(0, 128, 128), border=border,
     )
     x = _img(P, 256, 384, seed=17)
-    from recfilter_tpu.kernels import completion as _completion
-
-    calls = []
-    orig = _completion.tails_pass
-
-    def counting(*a, **k):
-        calls.append(1)
-        return orig(*a, **k)
-
-    _completion.tails_pass = counting
-    try:
-        got = np.asarray(
-            dimfuse.apply_filter_fused(
-                spec, jnp.asarray(x), matmul_precision=mode
-            )
-        )
-    finally:
-        _completion.tails_pass = orig
-    # pass 1: one vmapped tails read; pass 2: chained (zero reads)
-    assert len(calls) == 1, f"expected 1 vmapped tails read, saw {len(calls)}"
-    from recfilter_tpu import scan_core
+    got = np.asarray(
+        dimfuse.apply_filter_fused(spec, jnp.asarray(x), matmul_precision=mode)
+    )
 
     want = scan_core.oracle_apply(spec, x.astype(np.float64))
     scale = np.abs(want).max()
@@ -665,9 +575,8 @@ def test_px_tails_chaining_leading_channel(mode, bound, border, old_px_chain):
 
 
 def test_px_volume_leading_channel():
-    """A 3-D volume under a leading channel batch (rot_axes=3, P>1): the
-    per-slice kernel pipeline must hold f32 grade across all three
-    rotated passes (dual-field volumes; interpret mode)."""
+    """A 3-D volume under a leading channel batch (rot_axes=3, P>1) must
+    hold f32 grade across all three rotated passes (dual-field volumes)."""
     import jax.numpy as jnp
 
     P = 2
@@ -688,11 +597,13 @@ def test_px_volume_leading_channel():
 
 
 def test_px_tails_chaining_volume():
-    """3-D px routes: the DEFAULT volume path is rows-pass + 3-touch 2-D
-    executor (no per-pass tails read at all — rows_tails/moments kernels
-    own it); the rotation chain (overlap flag off) still single-reads the
-    volume for tails (both non-final passes emit the next pass's)."""
+    """3-D px6 volume through the rotation chain (three rotated passes,
+    mixed causality and orders) holds f32 grade vs the oracle, with no
+    pallas_call in the traced program."""
+    import jax
     import jax.numpy as jnp
+
+    from chip_smoke import has_pallas_call
 
     scans = [
         Scan(2, True, 1.0, (0.5,)),
@@ -704,50 +615,15 @@ def test_px_tails_chaining_volume():
         tuple(scans), tile_widths=(128, 128, 128),
     )
     x = _img(128, 256, 128, seed=17)
-    from recfilter_tpu import scan_core
-    from recfilter_tpu.kernels import completion as _completion
-    from recfilter_tpu.kernels import final2d as _f2d
-
     want = scan_core.oracle_apply(spec, x.astype(np.float64))
     scale = np.abs(want).max()
 
-    calls = []
-    rows_calls = []
-    orig = _completion.tails_pass
-    orig_rows = _f2d.rows_tails_px
+    def run(v):
+        return dimfuse.apply_filter_fused(spec, v, matmul_precision="px6")
 
-    def counting(*a, **k):
-        calls.append(1)
-        return orig(*a, **k)
-
-    def counting_rows(*a, **k):
-        rows_calls.append(1)
-        return orig_rows(*a, **k)
-
-    _completion.tails_pass = counting
-    _f2d.rows_tails_px = counting_rows
-    try:
-        got = np.asarray(
-            dimfuse.apply_filter_fused(
-                spec, jnp.asarray(x), matmul_precision="px6"
-            )
-        )
-        assert (len(calls), len(rows_calls)) == (0, 1)
-        assert np.abs(got - want).max() <= 2e-6 * scale
-
-        calls.clear()
-        dimfuse._OVERLAP_PX_2D = False
-        got = np.asarray(
-            dimfuse.apply_filter_fused(
-                spec, jnp.asarray(x), matmul_precision="px6"
-            )
-        )
-        assert len(calls) == 1
-        assert np.abs(got - want).max() <= 2e-6 * scale
-    finally:
-        _completion.tails_pass = orig
-        _f2d.rows_tails_px = orig_rows
-        dimfuse._OVERLAP_PX_2D = True
+    assert not has_pallas_call(jax.make_jaxpr(run)(jnp.asarray(x)))
+    got = np.asarray(run(jnp.asarray(x)))
+    assert np.abs(got - want).max() <= 2e-6 * scale
 
 
 @pytest.mark.parametrize("mode", ["px3", "px4"])
@@ -768,12 +644,10 @@ def test_pallas_completion_clamp_pad_variants(mode):
 
 
 @pytest.mark.parametrize("mode", ["px3", "px6"])
-def test_px_epilogue_fused_into_kernel(mode, old_px_chain):
-    """In px modes an elementwise epilogue must ride the completion kernel
-    (applied per out-block in VMEM), not run as a separate post-kernel
-    stream — and the result must equal the unfused combine."""
+def test_px_epilogue_fused_into_kernel(mode):
+    """In px modes an elementwise epilogue rides the final completion
+    einsum's emit; the result must equal the unfused combine."""
     import jax.numpy as jnp
-    from recfilter_tpu.kernels import completion as _completion
 
     scans = [
         Scan(1, True, 0.9, (0.6, 0.2)),
@@ -789,25 +663,12 @@ def test_px_epilogue_fused_into_kernel(mode, old_px_chain):
     def combine(blur, image):
         return 2.0 * image - 0.5 * blur
 
-    seen = []
-    orig = _completion.completion_pass
-
-    def spying(*a, **k):
-        seen.append(k.get("epilogue") is not None)
-        return orig(*a, **k)
-
-    _completion.completion_pass = spying
-    try:
-        got = np.asarray(
-            dimfuse.apply_filter_fused(
-                spec, jnp.asarray(x), matmul_precision=mode,
-                epilogue=combine, eaux=(jnp.asarray(aux),),
-            )
+    got = np.asarray(
+        dimfuse.apply_filter_fused(
+            spec, jnp.asarray(x), matmul_precision=mode,
+            epilogue=combine, eaux=(jnp.asarray(aux),),
         )
-    finally:
-        _completion.completion_pass = orig
-    # the LAST pass's kernel carried the epilogue; earlier passes did not
-    assert seen[-1] is True and not any(seen[:-1])
+    )
     plain = np.asarray(
         dimfuse.apply_filter_fused(spec, jnp.asarray(x),
                                    matmul_precision=mode)
@@ -816,12 +677,10 @@ def test_px_epilogue_fused_into_kernel(mode, old_px_chain):
                                atol=1e-5 * np.abs(plain).max())
 
 
-def test_bf16_storage_kernel_path_and_chaining(old_px_chain):
-    """bf16 storage mode routes through the completion kernels (nprod=1,
-    bf16 blocks in/out — half the image traffic) with tails chaining, and
-    holds the bf16 rounding bound."""
+def test_bf16_storage_kernel_path_and_chaining():
+    """bf16 storage mode (bf16 arrays between passes, one bf16 product per
+    image matmul) holds the bf16 rounding bound and emits bf16."""
     import jax.numpy as jnp
-    from recfilter_tpu.kernels import completion as _completion
 
     scans = [
         Scan(1, True, 0.9, (0.6, 0.2)),
@@ -833,28 +692,10 @@ def test_bf16_storage_kernel_path_and_chaining(old_px_chain):
     )
     x = _img(256, 256, seed=23)
 
-    tails_calls, comp_dtypes = [], []
-    orig_t, orig_c = _completion.tails_pass, _completion.completion_pass
-
-    def spy_t(*a, **k):
-        tails_calls.append(1)
-        return orig_t(*a, **k)
-
-    def spy_c(xq, *a, **k):
-        comp_dtypes.append((xq.dtype, k.get("nprod")))
-        return orig_c(xq, *a, **k)
-
-    _completion.tails_pass, _completion.completion_pass = spy_t, spy_c
-    try:
-        got = np.asarray(
-            dimfuse.apply_filter_fused(
-                spec, jnp.asarray(x, jnp.bfloat16), matmul_precision="px6"
-            ).astype(jnp.float32)
-        )
-    finally:
-        _completion.tails_pass, _completion.completion_pass = orig_t, orig_c
-    assert len(tails_calls) == 1          # pass 2's tails came chained
-    assert all(d == jnp.bfloat16 and k == 1 for d, k in comp_dtypes)
+    y = dimfuse.apply_filter_fused(
+        spec, jnp.asarray(x, jnp.bfloat16), matmul_precision="px6")
+    assert y.dtype == jnp.bfloat16
+    got = np.asarray(y.astype(jnp.float32))
     spec_f32 = FilterSpec("BF16K", spec.dims, spec.scans,
                           tile_widths=spec.tile_widths)
     want = scan_core.oracle_apply(spec_f32, x.astype(np.float64))
@@ -863,9 +704,9 @@ def test_bf16_storage_kernel_path_and_chaining(old_px_chain):
 
 
 def test_grad_through_kernel_paths_matches_highest():
-    """jax.grad must flow through the px/bf16 kernel defaults (custom VJP
-    through the einsum twins — pallas_call has no autodiff) and match the
-    HIGHEST einsum path's gradient at f32 grade."""
+    """jax.grad must flow through the px6 default (the split products'
+    custom VJP transposes the HIGHEST einsum) and match the HIGHEST einsum
+    path's gradient at f32 grade."""
     import jax
     import jax.numpy as jnp
 
@@ -888,10 +729,10 @@ def test_banded_solve_blocks_structure_and_equivalence():
     """Decaying filters get a narrow block band (gaussian3: offsets
     {-1,0,1}); integrators (SAT) exceed the band cap and keep the dense
     matmul; the banded apply equals the dense solve to f32 grade."""
+    import jax
     import jax.numpy as jnp
 
-    from recfilter_tpu import iir
-    from recfilter_tpu.kernels import completion as _completion
+    from recfilter import iir
 
     w = iir.gaussian_weights(4.0, 3)
     scans = [Scan(1, True, w[0], tuple(w[1:])),
@@ -902,13 +743,10 @@ def test_banded_solve_blocks_structure_and_equivalence():
     bands = dimfuse.banded_solve_blocks(CM, n, S)
     assert bands is not None and {d for d, _ in bands} <= {-2, -1, 0, 1, 2}
 
-    braw = np.random.default_rng(5).standard_normal((n, 8, 64)) * 0.1
-    braw[:, S:] = 0.0
-    braw_t = jnp.asarray(braw, jnp.float32)
-    got = np.asarray(dimfuse._banded_solve_apply(bands, braw_t, S))
-    CMp = _completion.pad_solve_matrix(CM, n, S)
-    want = (CMp @ np.asarray(braw, np.float64).reshape(n * 8, 64)).reshape(
-        n, 8, 64)
+    braw = np.random.default_rng(5).standard_normal((7, n, S)) * 0.1
+    got = np.asarray(dimfuse._banded_solve_apply(
+        bands, jnp.asarray(braw, jnp.float32), jax.lax.Precision.HIGHEST))
+    want = np.einsum("ts,ls->lt", CM, braw.reshape(7, n * S)).reshape(7, n, S)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * np.abs(want).max())
 
     sat = [Scan(1, True, 1.0, (1.0,))]
@@ -925,9 +763,9 @@ def test_banded_solve_blocks_structure_and_equivalence():
 @pytest.mark.parametrize("start,end", [("zero", "clamp"), ("clamp", "zero"),
                                        ("zero", "zero")])
 def test_stencil_kernel_path_matches_fallback(start, end):
-    """The in-kernel stencil (halo strips + VMEM tap combine, px path at
-    T=128) must equal the XLA-shift fallback applied after the plain
-    pass, for every border-mode combination."""
+    """A single-dimension pass with a stencil consumer (px6, T=128) must
+    equal the XLA shifts applied after the plain pass, for every
+    border-mode combination."""
     import jax.numpy as jnp
 
     scans = [Scan(1, True, 1.0, (2.0, -1.0))]  # 2nd-order integrator
@@ -937,23 +775,9 @@ def test_stencil_kernel_path_matches_fallback(start, end):
     taps = [(10, 0.25), (-1, -2.0), (-12, 1.0)]
     stencil = {"taps": taps, "start": start, "end": end}
 
-    from recfilter_tpu.kernels import completion as _completion
-
-    seen = []
-    orig = _completion.completion_pass
-
-    def spying(*a, **k):
-        seen.append(k.get("stencil") is not None)
-        return orig(*a, **k)
-
-    _completion.completion_pass = spying
-    try:
-        got = np.asarray(dimfuse.apply_filter_rotated(
-            spec, jnp.asarray(x), rot_axes=2, matmul_precision="px6",
-            stencil=stencil))
-    finally:
-        _completion.completion_pass = orig
-    assert seen == [True], "stencil did not ride the completion kernel"
+    got = np.asarray(dimfuse.apply_filter_rotated(
+        spec, jnp.asarray(x), rot_axes=2, matmul_precision="px6",
+        stencil=stencil))
     plain = np.asarray(dimfuse.apply_filter_rotated(
         spec, jnp.asarray(x), rot_axes=2, matmul_precision="px6"))
     want = np.asarray(dimfuse.apply_stencil(
@@ -963,10 +787,8 @@ def test_stencil_kernel_path_matches_fallback(start, end):
 
 
 def test_stencil_per_slice_kernel_and_grad():
-    """Per-slice taps (leading channel axis, the DoG dual radius) through
-    the per-slice kernel branch; jax.grad must flow through the stencil's
-    custom VJP (halo inputs carry zero cotangent — the twin recomputes the
-    consumer globally) at f32 grade."""
+    """Per-slice taps (leading channel axis, the DoG dual radius) match the
+    per-slice shifts; jax.grad through the consumer holds f32 grade."""
     import jax
     import jax.numpy as jnp
 
@@ -1008,14 +830,11 @@ def test_stencil_per_slice_kernel_and_grad():
 
 
 def test_hierarchical_two_level_chain_rides_kernels():
-    """VERDICT r3 #4: audio-scale tile counts route through the two-level
-    supertile chain — supertile-local passes ride the px completion
-    kernels (interpret mode here), one combined supertile solve closes the
-    chain — and match the oracle at f32 grade, incl. clamp, anticausal,
-    and non-dividing extents."""
+    """Audio-scale tile counts route through the two-level supertile
+    chain — supertile-local einsum passes, one combined supertile solve
+    closes the chain — and match the oracle at f32 grade, incl. clamp,
+    anticausal, and non-dividing extents."""
     import jax.numpy as jnp
-
-    from recfilter_tpu.kernels import completion
 
     rng = np.random.default_rng(7)
     cases = [
@@ -1027,30 +846,22 @@ def test_hierarchical_two_level_chain_rides_kernels():
         fb = tuple([0.3, -0.1, 0.05][:order])
         s = Scan(0, causal, 0.9, fb)
 
-        hier, kern = [], []
+        hier = []
         orig_h = dimfuse.hierarchical_dim_pass
-        orig_k = completion.completion_pass
 
         def spy_h(*a, **k):
             r = orig_h(*a, **k)
             hier.append(r is not None)
             return r
 
-        def spy_k(*a, **k):
-            kern.append(1)
-            return orig_k(*a, **k)
-
         dimfuse.hierarchical_dim_pass = spy_h
-        completion.completion_pass = spy_k
         try:
             got = np.asarray(dimfuse.fused_dim_pass(
                 jnp.asarray(x), 0, [s], tile, border,
                 matmul_precision="px6"))
         finally:
             dimfuse.hierarchical_dim_pass = orig_h
-            completion.completion_pass = orig_k
         assert hier == [True], (w, border)
-        assert kern, "supertile locals must ride the px completion kernels"
         want = scan_core.oracle_apply_scan(
             x.astype(np.float64), 0, causal, 0.9, list(fb), border)
         scale = np.abs(want).max()
@@ -1080,8 +891,7 @@ def test_hierarchical_gates_fall_back():
     assert dimfuse.hierarchical_dim_pass(
         jnp.ones(200000, jnp.float32), 0, [s], BorderMode.ZERO,
         "highest") is None  # HIGHEST keeps the einsum path
-    # throughput mode rides the hierarchy (dense supertile solves beat
-    # the associative chain at every grade — measured on chip)
+    # throughput mode rides the hierarchy too
     y = dimfuse.hierarchical_dim_pass(
         jnp.ones(200000, jnp.float32), 0, [s], BorderMode.ZERO, "default")
     assert y is not None
@@ -1133,13 +943,9 @@ def test_hierarchical_high_order_chain_oracle():
 
 
 def test_rows_route_gated_off_at_default_precision():
-    """Round-4 app-sweep catch: non-last-axis single-dim filters at
-    "default" precision must take the einsum/conv form, NOT the rows-pass
-    kernels (measured 0.304 vs 0.205 ms per 4K pass on chip — the kernels
-    lose XLA fusion at one plain product; the px grades keep the rows
-    route, where the split einsums lower to slow convolutions)."""
-    from recfilter_tpu import overlap2d
-
+    """Non-last-axis single-dim filters take the moved-axis rotated pass
+    (``_last_axis_pass_t``) at every grade — "default" and px6 alike —
+    and match the oracle."""
     spec = FilterSpec(
         "RG", (Dim("y", 256), Dim("x", 256)),
         (Scan(0, True, 0.8, (0.4,)), Scan(0, False, 0.8, (0.4,))),
@@ -1147,18 +953,22 @@ def test_rows_route_gated_off_at_default_precision():
     )
     x = np.random.default_rng(5).standard_normal(
         (256, 256)).astype(np.float32)
+    want = scan_core.oracle_apply(spec, x.astype(np.float64))
+    scale = np.abs(want).max()
     calls = []
-    orig = overlap2d.fused_rows_px
+    orig = dimfuse._last_axis_pass_t
 
     def spy(*a, **k):
-        calls.append(True)
+        calls.append(k.get("rot_axes"))
         return orig(*a, **k)
 
-    overlap2d.fused_rows_px = spy
+    dimfuse._last_axis_pass_t = spy
     try:
-        dimfuse.apply_filter_fused(spec, x, matmul_precision="default")
-        assert not calls, "default precision must not take the rows route"
-        dimfuse.apply_filter_fused(spec, x, matmul_precision="px6")
-        assert calls, "px6 must keep the rows route"
+        for mode, bound in (("default", 1e-2), ("px6", 2e-6)):
+            calls.clear()
+            got = np.asarray(
+                dimfuse.apply_filter_fused(spec, x, matmul_precision=mode))
+            assert calls == [2], (mode, calls)
+            assert np.abs(got - want).max() <= bound * scale, mode
     finally:
-        overlap2d.fused_rows_px = orig
+        dimfuse._last_axis_pass_t = orig

@@ -4,9 +4,9 @@ and the README quickstart verbatim."""
 import numpy as np
 import pytest
 
-import recfilter_tpu as rf
-from recfilter_tpu import dimfuse, scan_core
-from recfilter_tpu.spec import BorderMode, Dim, FilterSpec, Scan
+import recfilter as rf
+from recfilter import dimfuse, scan_core
+from recfilter.spec import BorderMode, Dim, FilterSpec, Scan
 
 
 def _img(*shape, seed=0):

@@ -11,10 +11,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from recfilter_tpu import fir
-from recfilter_tpu.apps import box as box_app
-from recfilter_tpu.apps.box import box_oracle
-from recfilter_tpu.apps.dog import difference_of_gaussians
+from recfilter import fir
+from recfilter.apps import box as box_app
+from recfilter.apps.box import box_oracle
+from recfilter.apps.dog import difference_of_gaussians
 
 
 def _img(h, w, seed=0):
@@ -86,8 +86,8 @@ def test_fir_dog_bank_contract_every_pixel():
                                         ("px3", 1e-3), ("px4", 1e-4),
                                         ("px6", 1e-5)])
 def test_fir_split_precision_modes(mode, bound):
-    """px modes have no FIR kernel; they must run as the equivalent
-    compensated split einsums, NOT degrade to plain HIGHEST."""
+    """px modes run as the equivalent compensated split einsums, NOT
+    degrade to plain HIGHEST."""
     img = _img(64, 128, seed=7)
     taps = fir.box_taps(5, 3)
     got = np.asarray(fir.fir_pass_last(jnp.asarray(img), taps, tile_width=64,
@@ -142,69 +142,70 @@ def test_box1_fir_matches_box_oracle_everywhere():
                                atol=2e-6 * np.abs(want).max())
 
 
+_GRADE = {1: "default", 3: "px3", 6: "px6"}
+
+
 @pytest.mark.parametrize("nprod,bound", [(1, 2e-2), (3, 1e-4), (6, 2e-6)])
 @pytest.mark.parametrize("L,q", [(512, 64), (500, 40)])
 def test_fir_band_kernel_plain(nprod, bound, L, q):
-    """Fused band kernel vs float64 oracle: non-dividing extents, row
-    padding, rot/flat layout agreement (interpret mode on CPU)."""
-    from recfilter_tpu.kernels import fir_band
-
+    """Banded FIR pass at each product count's grade vs the float64
+    oracle: non-dividing extents, row padding, rot/flat layout
+    agreement."""
     x = np.random.default_rng(31).standard_normal((q, L)).astype(np.float32)
     taps = fir.box_taps(5, 3)
     want = fir.fir_oracle(x, taps, 1)
-    got = np.asarray(fir_band.fir_band_pass(
-        jnp.asarray(x), taps, T=128, rot=False, nprod=nprod, interpret=True))
+    mp = _GRADE[nprod]
+    got = np.asarray(fir.fir_pass_last(
+        jnp.asarray(x), taps, tile_width=128, matmul_precision=mp))
     assert np.abs(got - want).max() <= bound * np.abs(want).max()
-    gr = np.asarray(fir_band.fir_band_pass(
-        jnp.asarray(x), taps, T=128, rot=True, nprod=nprod, interpret=True))
-    # rot/flat run transposed corner dots whose summation order differs —
-    # agreement is to f32 rounding, not bitwise (was bitwise before the
-    # corner-dot decomposition).
+    gr = np.asarray(fir.fir_pass_last(
+        jnp.asarray(x), taps, tile_width=128, matmul_precision=mp,
+        emit_rot=True))
     np.testing.assert_allclose(gr.T, got, rtol=0,
                                atol=1e-6 * np.abs(got).max())
 
 
 def test_fir_band_kernel_bank_and_contract():
-    """Dual-radius bank (1→2) and signed contraction (2→1) through the
-    kernel — DoG's two structures."""
-    from recfilter_tpu.kernels import fir_band
-
+    """Dual-radius bank (1→2) and signed contraction (2→1) — DoG's two
+    structures — at px6 vs the float64 oracle."""
     x = np.random.default_rng(33).standard_normal((64, 512)).astype(np.float32)
     tb = fir._align_taps([fir.box_taps(3, 3), fir.box_taps(5, 3)])
-    got = np.asarray(fir_band.fir_band_pass(
-        jnp.asarray(x), tb, T=128, rot=True, nprod=6, interpret=True))
+    got = np.asarray(fir.fir_pass_last(
+        jnp.asarray(x), tb, tile_width=128, bank=True, emit_rot=True,
+        matmul_precision="px6"))
     for c in range(2):
         w = fir.fir_oracle(x, tb[c], 1)
         assert np.abs(got[c].T - w).max() <= 2e-6 * np.abs(w).max()
     xc = np.stack([x, x[::-1]]).astype(np.float32)
-    gc = np.asarray(fir_band.fir_band_pass(
-        jnp.asarray(xc), tb, T=128, rot=False, nprod=6,
-        signs=[1.0, -1.0], contract=True, interpret=True))
+    gc = np.asarray(fir.fir_pass_last(
+        jnp.asarray(xc), tb * np.array([[1.0], [-1.0]]), tile_width=128,
+        contract=True, matmul_precision="px6"))
     wc = fir.fir_oracle(x, tb[0], 1) - fir.fir_oracle(x[::-1], tb[1], 1)
     assert np.abs(gc - wc).max() <= 5e-6 * np.abs(wc).max()
 
 
 def test_fir_pass_last_routes_to_band_kernel():
-    """fir_pass_last must take the kernel path at the TPU geometry (T=128)
-    and agree with the einsum path bit-for-bound."""
-    from recfilter_tpu.kernels import fir_band
+    """At px6 fir_pass_last runs the main and both edge-strip matmuls as
+    split-bf16 products, and agrees with the f32x6 grade at another tile
+    width."""
+    from recfilter import dimfuse
 
     x = np.random.default_rng(35).standard_normal((48, 640)).astype(np.float32)
     taps = fir.box_taps(4, 3)
     calls = []
-    orig = fir_band.fir_band_pass
+    orig = dimfuse._split_einsum
 
-    def spy(*a, **k):
-        calls.append(k.get("nprod"))
-        return orig(*a, **k)
+    def spy(eq, M, X, npasses, acc):
+        calls.append(npasses)
+        return orig(eq, M, X, npasses, acc)
 
-    fir_band.fir_band_pass = spy
+    dimfuse._split_einsum = spy
     try:
         got = np.asarray(fir.fir_pass_last(
             jnp.asarray(x), taps, tile_width=128, matmul_precision="px6"))
     finally:
-        fir_band.fir_band_pass = orig
-    assert calls == [6]
+        dimfuse._split_einsum = orig
+    assert calls == [6, 6, 6]
     want = np.asarray(fir.fir_pass_last(
         jnp.asarray(x), taps, tile_width=64, matmul_precision="f32x6"))
     np.testing.assert_allclose(got, want, rtol=0,
@@ -212,8 +213,7 @@ def test_fir_pass_last_routes_to_band_kernel():
 
 
 def test_fir_grads_f32_grade_all_paths():
-    """Gradients through the band kernel AND the split-einsum path must be
-    f32-grade (custom VJPs transpose the exact einsum — differentiating
+    """Gradients through every split-einsum grade must be f32-grade (custom VJPs transpose the exact einsum — differentiating
     through the bf16 chunk casts measured 3.8e-3 error)."""
     import jax
 
@@ -229,69 +229,24 @@ def test_fir_grads_f32_grade_all_paths():
 
 
 def test_fir_band_tap_scale_exact_integer_band():
-    """(2B+1)^n-scaled box taps are small integers (exact in bf16): the
-    kernel must use the reduced x-chunk-only product set at unchanged
-    accuracy, and must silently fall back when the scaled taps are NOT
-    exactly representable (box6's numerators exceed the bf16 integer
-    range)."""
-    import jax
-
-    from recfilter_tpu.kernels import fir_band
-
+    """Box³ and box⁶ taps (box⁶'s numerators exceed bf16's exact-integer
+    range) at px6 hold the f32 bar vs the float64 oracle."""
     x = jnp.asarray(_img(48, 640, seed=61) * 0.1)
-    taps = fir.box_taps(5, 3)  # numerators <= 91: exact at scale 11^3
-    want = fir.fir_oracle(np.asarray(x), taps, 1)
-    s = np.abs(want).max()
-    got = np.asarray(fir_band.fir_band_pass(
-        x, taps, T=128, rot=False, nprod=6, interpret=True,
-        tap_scale=float(11 ** 3)))
-    assert np.abs(got - want).max() <= 2e-6 * s
-    # invalid scale -> generic chunking, same accuracy
-    got2 = np.asarray(fir_band.fir_band_pass(
-        x, taps, T=128, rot=False, nprod=6, interpret=True,
-        tap_scale=7.0))
-    assert np.abs(got2 - want).max() <= 2e-6 * s
-    # box6 taps: numerators exceed bf16's exact-integer range
-    t6 = fir.box_taps(5, 6)
-    w6 = fir.fir_oracle(np.asarray(x), t6, 1)
-    g6 = np.asarray(fir_band.fir_band_pass(
-        x, t6, T=128, rot=False, nprod=6, interpret=True,
-        tap_scale=float(11 ** 6)))
-    assert np.abs(g6 - w6).max() <= 2e-6 * np.abs(w6).max()
-
-
-def test_exact_band_decision():
-    """box1/box3 taps qualify for the reduced product set (after integer
-    snapping of the f64 convolution noise); box6's numerators exceed
-    bf16's exact-integer range; bogus scales are rejected."""
-    from recfilter_tpu.kernels import fir_band
-
-    assert fir_band.exact_band(fir.box_taps(5, 1), 11.0, 1) is not None
-    assert fir_band.exact_band(fir.box_taps(5, 3), 11.0 ** 3, 1) is not None
-    assert fir_band.exact_band(fir.box_taps(4, 3), 9.0 ** 3, 1) is not None
-    assert fir_band.exact_band(fir.box_taps(5, 6), 11.0 ** 6, 1) is None
-    assert fir_band.exact_band(fir.box_taps(5, 3), 7.0, 1) is None
-    # DoG's B2=9 channel: central numerator 271 is an odd 9-bit integer
-    assert fir_band.exact_band(fir.box_taps(9, 3), 19.0 ** 3, 1) is None
+    for taps in (fir.box_taps(5, 3), fir.box_taps(5, 6)):
+        want = fir.fir_oracle(np.asarray(x), taps, 1)
+        got = np.asarray(fir.fir_pass_last(
+            x, taps, tile_width=128, matmul_precision="px6"))
+        assert np.abs(got - want).max() <= 2e-6 * np.abs(want).max()
 
 
 def test_exact_band_per_channel_mixed():
-    """DoG's mixed pair: the B=5 channel gets the reduced set, B=9 keeps
-    the generic products — decided independently — and the mixed-channel
-    kernel stays f64-oracle exact."""
-    from recfilter_tpu.kernels import fir_band
-
+    """DoG's mixed pair (B=5 and B=9 box³ channels, signed) as one bank
+    stays f64-oracle exact at px6."""
     tb = fir._align_taps([fir.box_taps(5, 3), fir.box_taps(9, 3)])
-    res = fir_band.exact_band(tb, [11.0 ** 3, 19.0 ** 3], 2)
-    assert res is not None
-    _, inv_s, flags = res
-    assert flags == [True, False] and inv_s[1] == 1.0
-
+    tb = tb * np.array([[1.0], [-1.0]])
     x = jnp.asarray(_img(48, 640, seed=71) * 0.1)
-    got = np.asarray(fir_band.fir_band_pass(
-        x, tb, T=128, rot=False, nprod=6, interpret=True,
-        signs=[1.0, -1.0], contract=False,
-        tap_scale=[11.0 ** 3, 19.0 ** 3]))
+    got = np.asarray(fir.fir_pass_last(
+        x, tb, tile_width=128, bank=True, matmul_precision="px6"))
     for c, t in enumerate(tb):
-        w = fir.fir_oracle(np.asarray(x), t * (1.0 if c == 0 else -1.0), 1)
+        w = fir.fir_oracle(np.asarray(x), t, 1)
         assert np.abs(got[c] - w).max() <= 2e-6 * np.abs(w).max(), c

@@ -4,9 +4,8 @@ The property the whole engine must hold is oracle equivalence (at each
 mode's documented grade) for EVERY expressible filter. Round 4 grew this
 into a matrix sweep (VERDICT r3 #8): (order 1-4, scans 1-4, mixed
 causality) x (clamp/zero) x (pad/exact tiling) x (rot/flat layouts) x
-(P 1/3 leading channels) x precision modes x backends, plus
-kernel-geometry shapes (128-lane tiles) that engage the px completion /
-3-touch overlapped kernels in interpret mode, streaming chunkings, the
+(P 1/3 leading channels) x precision modes x backends, plus 128-wide
+tile shapes (the card's tile width), streaming chunkings, the
 rotated-layout chain, banded FIR, and the integer limb executor.
 Mirrors the reference's awkward-shape oracle doctrine
 (``tests/test_generic_xy.cpp:49-113``).
@@ -15,11 +14,11 @@ Mirrors the reference's awkward-shape oracle doctrine
 import numpy as np
 import pytest
 
-from recfilter_tpu import dimfuse, overlap2d, scan_core
-from recfilter_tpu.spec import BorderMode, Dim, FilterSpec, Scan
+from recfilter import dimfuse, overlap2d, scan_core
+from recfilter.spec import BorderMode, Dim, FilterSpec, Scan
 
 # mode -> relative bound vs the f64 oracle (documented grades; "default"
-# is XLA's single-pass bf16)
+# is XLA's own dot precision — TF32 on the GPU)
 _MODE_BOUNDS = {
     "px6": 4e-6,
     "f32x6": 4e-6,
@@ -46,8 +45,8 @@ def _rand_scans(rng, ndim, nscan=None, max_order=4):
 
 def _random_spec(rng, kernel_geometry=False, channels=1):
     if kernel_geometry:
-        # shapes that engage the px completion / 3-touch kernels
-        # (128-lane tiles, n tiles, optional pad)
+        # 128-wide tiles (the card's auto tile width), n tiles, optional
+        # pad
         ndim = 2
         extents = [int(rng.choice([128, 256, 131, 384]))
                    for _ in range(ndim)]
@@ -99,9 +98,7 @@ def test_fuzz_precision_backend_matrix(seed):
             got = dimfuse.apply_filter_fused(spec, x,
                                              matmul_precision=mode)
         elif backend == "overlap":
-            got = overlap2d.apply_filter_overlap(
-                spec, x, matmul_precision=mode,
-                interpret=True)
+            got = overlap2d.apply_filter_overlap(spec, x)
         else:
             got = scan_core.apply_filter(spec, x)
             bound = 4e-6  # lax.scan runs true f32
@@ -110,9 +107,8 @@ def test_fuzz_precision_backend_matrix(seed):
 
 @pytest.mark.parametrize("seed", range(8))
 def test_fuzz_kernel_geometry(seed):
-    """128-lane-tile shapes that actually ENGAGE the px kernels (the
-    3-touch overlapped executor, tails/completion chaining, pad variants,
-    P>1 channel groups) in interpret mode."""
+    """128-wide tile shapes through the shipping executor: pad variants,
+    P>1 channel groups, each precision grade."""
     rng = np.random.default_rng(2000 + seed)
     channels = 3 if seed % 3 == 0 else 1
     spec = _random_spec(rng, kernel_geometry=True, channels=channels)
@@ -154,7 +150,7 @@ def test_fuzz_integer_limbs(seed):
 @pytest.mark.parametrize("seed", range(10))
 def test_random_streamed_matches_oracle(seed):
     """Streaming executor property: any chunking == in-core result."""
-    from recfilter_tpu import streaming
+    from recfilter import streaming
 
     rng = np.random.default_rng(7000 + seed)
     spec = _random_spec(rng)
@@ -212,13 +208,12 @@ def test_random_rotated_chain_matches_oracle(seed):
 
 @pytest.mark.parametrize("seed", range(15))
 def test_random_fir_band_matches_oracle(seed):
-    """Fuzz the banded-FIR kernel: random taps (odd/even support, random
-    signs/magnitudes), random extents/rows, every precision grade, with
-    and without a (sometimes bogus) tap_scale — vs the f64 oracle."""
+    """Fuzz the banded-FIR pass: random taps (odd/even support, random
+    signs/magnitudes), random extents/rows, every precision grade, both
+    layouts — vs the f64 oracle."""
     import jax.numpy as jnp
 
-    from recfilter_tpu import fir
-    from recfilter_tpu.kernels import fir_band
+    from recfilter import fir
 
     rng = np.random.default_rng(900 + seed)
     K = int(rng.integers(2, 60))
@@ -227,26 +222,22 @@ def test_random_fir_band_matches_oracle(seed):
     q = int(rng.integers(8, 40))
     x = rng.standard_normal((q, L)).astype(np.float32) * 0.1
     want = fir.fir_oracle(x, taps, 1)
-    scale = None
-    if rng.random() < 0.5:
-        # random scale: almost never exact — must silently fall back
-        scale = float(10.0 ** rng.integers(0, 3))
-    nprod, bound = [(1, 3e-2), (3, 1e-3), (6, 1e-5)][seed % 3]
+    mode, bound = [("default", 3e-2), ("px3", 1e-3), ("px6", 1e-5)][seed % 3]
     rot = bool(rng.random() < 0.5)
-    got = np.asarray(fir_band.fir_band_pass(
-        jnp.asarray(x), taps, T=128, rot=rot, nprod=nprod,
-        interpret=True, tap_scale=scale))
+    got = np.asarray(fir.fir_pass_last(
+        jnp.asarray(x), taps, tile_width=128, emit_rot=rot,
+        matmul_precision=mode))
     if rot:
         got = got.T
     scale_ref = max(np.abs(want).max(), 1e-6)
-    assert np.abs(got - want).max() <= bound * scale_ref, (seed, nprod)
+    assert np.abs(got - want).max() <= bound * scale_ref, (seed, mode)
 
 
 @pytest.mark.parametrize("seed", range(8))
 def test_fuzz_integer_unit_class(seed):
     """Random unit-feedback integer specs (a=±1 and (1∓z)^k products) at
-    awkward extents/axes — the additive kernel's padding paths, sublane
-    vs lane variants, and chained decompositions. Always bit-exact."""
+    awkward extents/axes — leading and trailing axes, and chained
+    decompositions. Always bit-exact."""
     rng = np.random.default_rng(4000 + seed)
     ndim = int(rng.integers(1, 4))
     extents = [int(rng.integers(5, 97)) for _ in range(ndim)]
@@ -273,14 +264,13 @@ def test_fuzz_integer_unit_class(seed):
 
 @pytest.mark.parametrize("seed", range(6))
 def test_fuzz_multislot_high_order(seed):
-    """Round 5: carries past the 8-slot quantum — multi-slot kernel
-    carries on 128-lane geometry, the natural-layout banded einsum
-    solves, and the hierarchical Kogge–Stone chain — on random stable
-    high-order specs vs the oracle at px6 grade."""
+    """Carries past ΣK=8 — high-order carries at 128-wide tiles, the
+    banded einsum solves, and the hierarchical Kogge–Stone chain — on
+    random stable high-order specs vs the oracle at px6 grade."""
     import jax.numpy as jnp
 
     rng = np.random.default_rng(7000 + seed)
-    # (a) kernel-geometry 2-D: one dim carries an order-9..19 scan
+    # (a) 128-wide tiles, 2-D: one dim carries an order-9..19 scan
     w = int(rng.choice([256, 384, 512]))
     order = int(rng.integers(9, 20))
     a = rng.uniform(-1.0, 1.0, order)
@@ -310,13 +300,12 @@ def test_fuzz_multislot_high_order(seed):
 
 @pytest.mark.parametrize("seed", range(5))
 def test_fuzz_seq_seeded_sharding(seed):
-    """Round 5: the carry-seeded 3-touch sequence-sharded route (and its
-    Gdev fallback where gates decline) on random 2-D specs over 2-/4-way
+    """The Gdev sequence-sharded route on random 2-D specs over 2-/4-way
     seq meshes, both exchanges, vs the oracle."""
     import jax.numpy as jnp
 
-    from recfilter_tpu.parallel import sharding
-    from recfilter_tpu.planner import Plan
+    from recfilter.parallel import sharding
+    from recfilter.planner import Plan
 
     rng = np.random.default_rng(8000 + seed)
     D = int(rng.choice([2, 4]))
@@ -340,6 +329,6 @@ def test_fuzz_seq_seeded_sharding(seed):
     mesh = sharding.make_mesh((D,), ("seq",))
     exchange = ["gather", "ring"][int(rng.integers(0, 2))]
     got = np.asarray(sharding.sharded_apply_filter(
-        spec, Plan(interpret=True, matmul_precision="px6"), mesh,
+        spec, Plan(matmul_precision="px6"), mesh,
         jnp.asarray(x), seq_axis=seq_axis, exchange=exchange))
     _check(spec, x, got, 4e-6, ctx=f"seq D={D} ax={seq_axis} {exchange}")

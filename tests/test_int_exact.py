@@ -1,9 +1,9 @@
-"""Exact tiled integer execution (VERDICT r3 #3).
+"""Exact tiled integer execution.
 
 The reference runs integer images through its ONE tiled pipeline by
 casting coefficients into the image type and letting values wrap
 (``lib/recfilter.cpp:324-341``, ``tests/test_type_invariance.cpp:17-63``).
-``dimfuse.apply_filter_int_exact`` is that capability the TPU way: signed
+``dimfuse.apply_filter_int_exact`` is that capability on matmuls: signed
 mantissa limbs through the tiled f32 executor in the drop-free f32x9 mode,
 wrapping recombination, bit-exact vs the integer oracle — with a provable
 gate (entry-abs cascade gain) and an honest lax.scan fallback beyond it.
@@ -12,8 +12,8 @@ gate (entry-abs cascade gain) and an honest lax.scan fallback beyond it.
 import numpy as np
 import pytest
 
-from recfilter_tpu import dimfuse, scan_core
-from recfilter_tpu.spec import BorderMode, Dim, FilterSpec, Scan
+from recfilter import dimfuse, scan_core
+from recfilter.spec import BorderMode, Dim, FilterSpec, Scan
 
 
 def _check_exact(spec, img):
@@ -132,7 +132,7 @@ def test_unstable_feedback_falls_back():
 def test_gain_gate_boundary_4k_box2():
     """Order-2 integral image at 4K: per-dim gain ~ w^2/2 = 2^23 exceeds
     the LIMB budget, but (2,−1) = (1−z)² decomposes into two chained
-    unit cumsums — the additive kernel serves it exactly (round 4).
+    unit cumsums — the additive route serves it exactly.
     Non-decomposable feedback past the gain gate (Fibonacci (1,1))
     still falls back honestly rather than corrupting."""
     spec = FilterSpec(
@@ -164,8 +164,8 @@ def test_apply_filter_fused_routes_integers_through_limbs(monkeypatch):
     """The shipping whole-filter executor takes the limb path for integer
     specs (not the sequential scan fallback), and resolve_backend sends
     tiled integer specs to it."""
-    from recfilter_tpu import planner
-    from recfilter_tpu.planner import Plan
+    from recfilter import planner
+    from recfilter.planner import Plan
 
     spec = FilterSpec(
         "R", (Dim("y", 64), Dim("x", 64)),
@@ -192,7 +192,7 @@ def test_apply_filter_fused_routes_integers_through_limbs(monkeypatch):
 
 def test_api_realize_int32_sat():
     """End-to-end through the public builder API."""
-    import recfilter_tpu as rf
+    import recfilter as rf
 
     w = 96
     img = _rng(10).integers(-2**27, 2**27, (w, w)).astype(np.int32)
@@ -209,18 +209,18 @@ def test_api_realize_int32_sat():
 
 
 # ---------------------------------------------------------------------------
-# Round 4: wrapping additive fast path (kernels/int_scan.py)
+# Wrapping additive fast path (dimfuse.int_unit_dim_pass)
 # ---------------------------------------------------------------------------
 #
 # Unit-feedback integer dims (order 1, a = ±1, one integral tap — the
 # SAT/integral-image class of lib/recfilter.cpp:324-341) skip the limb
 # machinery entirely: int32 wrap IS the exact semantics, so the dimension
-# is one full-extent VMEM kernel of pure VPU adds (2 HBM touches).
+# is a chain of wrapping int32 cumulative sums.
 
 
 def test_unit_route_taken_for_sat():
-    """Both SAT dims must ride the additive kernel, not the limb path."""
-    from recfilter_tpu.kernels import int_scan
+    """Both SAT dims must ride the additive route, not the limb path."""
+    from recfilter import dimfuse
 
     spec = FilterSpec(
         "U", (Dim("y", 256), Dim("x", 256)),
@@ -229,24 +229,24 @@ def test_unit_route_taken_for_sat():
     )
     img = _rng(7).integers(-2**24, 2**24, (256, 256)).astype(np.int32)
     calls = []
-    orig = int_scan.int_unit_dim_pass
+    orig = dimfuse.int_unit_dim_pass
 
-    def spy(x, scans, axis, interpret):
+    def spy(x, units, axis):
         calls.append(axis)
-        return orig(x, scans, axis, interpret)
+        return orig(x, units, axis)
 
-    int_scan.int_unit_dim_pass = spy
+    dimfuse.int_unit_dim_pass = spy
     try:
         _check_exact(spec, img)
     finally:
-        int_scan.int_unit_dim_pass = orig
+        dimfuse.int_unit_dim_pass = orig
     assert calls == [1, 0]
 
 
 @pytest.mark.parametrize("dtype,hi", [("int32", 2**27), ("int16", 2**12),
                                       ("int8", 100)])
 def test_unit_kernel_exact_all_widths(dtype, hi):
-    """Wrap-exactness of the additive kernel at every integer width
+    """Wrap-exactness of the additive route at every integer width
     (mod-2^k via the mod-2^32 ring homomorphism)."""
     spec = FilterSpec(
         "U", (Dim("y", 192), Dim("x", 256)),
@@ -283,8 +283,8 @@ def test_unit_plus_limb_mixed_dims():
 
 
 def test_unit_volume_leading_axis():
-    """3-D integral image: the leading (sublane-variant) axis and both
-    trailing axes all ride the additive kernel."""
+    """3-D integral image: the leading axis and both trailing axes all
+    ride the additive route."""
     spec = FilterSpec(
         "U", (Dim("z", 16), Dim("y", 64), Dim("x", 128)),
         (Scan(2, True, 1, (1,)), Scan(1, True, 1, (1,)),
@@ -296,9 +296,9 @@ def test_unit_volume_leading_axis():
 
 
 def test_limb_route_still_exact_when_unit_disabled():
-    """The limb executor keeps covering the SAT class (the unit kernel is
+    """The limb executor keeps covering the SAT class (the unit route is
     an optimization, not a correctness dependency)."""
-    from recfilter_tpu.kernels import int_scan
+    from recfilter import dimfuse
 
     spec = FilterSpec(
         "U", (Dim("y", 128), Dim("x", 128)),
@@ -306,18 +306,18 @@ def test_limb_route_still_exact_when_unit_disabled():
         dtype="int16", tile_widths=(64, 64),
     )
     img = _rng(12).integers(-2**12, 2**12, (128, 128)).astype(np.int16)
-    orig = int_scan.unit_scans_of
-    int_scan.unit_scans_of = lambda s: None
+    orig = dimfuse.unit_scans_of
+    dimfuse.unit_scans_of = lambda s: None
     try:
         _check_exact(spec, img)
     finally:
-        int_scan.unit_scans_of = orig
+        dimfuse.unit_scans_of = orig
 
 
 def test_clamp_border_not_unit_routed():
-    """CLAMP borders change the first-tile algebra — the additive kernel
+    """CLAMP borders change the first-tile algebra — the additive route
     must not claim them; the limb path (which models clamp) serves."""
-    from recfilter_tpu.kernels import int_scan
+    from recfilter import dimfuse
 
     spec = FilterSpec(
         "U", (Dim("y", 64), Dim("x", 64)),
@@ -326,26 +326,26 @@ def test_clamp_border_not_unit_routed():
     )
     img = _rng(13).integers(-100, 100, (64, 64)).astype(np.int16)
     calls = []
-    orig = int_scan.int_unit_dim_pass
-    int_scan.int_unit_dim_pass = (
+    orig = dimfuse.int_unit_dim_pass
+    dimfuse.int_unit_dim_pass = (
         lambda *a, **k: (calls.append(1), orig(*a, **k))[1])
     try:
         _check_exact(spec, img)
     finally:
-        int_scan.int_unit_dim_pass = orig
+        dimfuse.int_unit_dim_pass = orig
     assert calls == []
 
 
 def test_unit_decomposition_higher_order():
     """Feedback polynomials factoring as (1−z)^m (1+z)^(k−m) — double
     integrators (2,−1), mixed roots (0,1), triple (3,−3,1) — decompose
-    into chained unit scans in ONE additive kernel; general feedback
-    (Fibonacci (1,1)) must not qualify."""
-    from recfilter_tpu.kernels import int_scan
+    into chained unit scans; general feedback (Fibonacci (1,1)) must not
+    qualify."""
+    from recfilter import dimfuse
 
-    assert int_scan.unit_scans_of(Scan(0, True, 3, (2, -1))) == [
+    assert dimfuse.unit_scans_of(Scan(0, True, 3, (2, -1))) == [
         (3, 1, True), (1, 1, True)]
-    assert int_scan.unit_scans_of(Scan(0, True, 1, (1, 1))) is None
+    assert dimfuse.unit_scans_of(Scan(0, True, 1, (1, 1))) is None
 
     spec = FilterSpec(
         "U", (Dim("y", 64), Dim("x", 128)),
@@ -354,23 +354,21 @@ def test_unit_decomposition_higher_order():
     )
     img = _rng(14).integers(-2**10, 2**10, (64, 128)).astype(np.int16)
     calls = []
-    orig = int_scan.int_unit_dim_pass
-    int_scan.int_unit_dim_pass = (
+    orig = dimfuse.int_unit_dim_pass
+    dimfuse.int_unit_dim_pass = (
         lambda *a, **k: (calls.append(a[2]), orig(*a, **k))[1])
     try:
         _check_exact(spec, img)
     finally:
-        int_scan.int_unit_dim_pass = orig
+        dimfuse.int_unit_dim_pass = orig
     assert calls == [1, 0]
 
 
 def test_segmented_large_extent_exact():
-    """Extents past the full-extent VMEM gate run the segmented 3-phase
-    variant (chunk-local kernel + tiny carry chain + fused correction):
-    a 300k-sample cumsum (beyond the limb gain gate — previously
-    lax.scan), an 8192-row sublane dim, both directions and a = −1,
-    odd extents exercising the far-end zero pad."""
-    from recfilter_tpu.kernels import int_scan
+    """Large extents on the additive route: a 300k-sample cumsum (beyond
+    the limb gain gate), an 8190-row leading dim, both directions and
+    a = −1, odd extents."""
+    from recfilter import dimfuse
 
     rng = _rng(15)
     x = rng.integers(-1000, 1000, (4, 300_001)).astype(np.int32)
@@ -387,16 +385,15 @@ def test_segmented_large_extent_exact():
     )
     _check_exact(spec2, y)
 
-    # the route really is segmented, not the single kernel
+    # the 300k extent rides the additive route, not the lax.scan core
     seen = []
-    orig = int_scan._segmented_unit_scan
-    int_scan._segmented_unit_scan = (
+    orig = dimfuse.int_unit_dim_pass
+    dimfuse.int_unit_dim_pass = (
         lambda *a, **k: (seen.append(a[2]), orig(*a, **k))[1])
     try:
-        int_scan.int_unit_dim_pass(
-            np.zeros((2, 100_000), np.int32), [(1, 1, True)], 1, True)
+        _check_exact(spec, x)
     finally:
-        int_scan._segmented_unit_scan = orig
+        dimfuse.int_unit_dim_pass = orig
     assert seen == [1]
 
 
@@ -404,7 +401,7 @@ def test_streaming_integer_exact():
     """Out-of-core (chunked) execution stays bit-exact for integer specs
     — cross-chunk carries are exact integers, so any chunking equals the
     in-core result."""
-    from recfilter_tpu import streaming
+    from recfilter import streaming
 
     spec = FilterSpec(
         "StInt", (Dim("y", 96), Dim("x", 96)),
@@ -420,12 +417,11 @@ def test_streaming_integer_exact():
 
 def test_extent_one_axis_applies_tap():
     """A degenerate extent-1 scan axis still applies the feed-forward
-    taps: y = (Π f)·x (round-4 review catch)."""
-    from recfilter_tpu.kernels import int_scan
+    taps: y = (Π f)·x."""
+    from recfilter import dimfuse
 
     x = np.array([[3], [4]], np.int32)
-    got = int_scan.int_unit_dim_pass(x, [(2, 1, True), (3, -1, False)],
-                                     1, True)
+    got = dimfuse.int_unit_dim_pass(x, [(2, 1, True), (3, -1, False)], 1)
     np.testing.assert_array_equal(np.asarray(got), [[18], [24]])
 
     spec = FilterSpec(

@@ -1,14 +1,12 @@
-"""Fused Pallas dimension-pass kernels vs the oracle (interpret mode on CPU)."""
+"""Dimension-pass executors vs the oracle: the XLA routes (einsum backend)
+that replaced the strip, stencil and completion kernels, at the shapes and
+tolerances the kernels were held to."""
 
 import numpy as np
 import pytest
 
-from recfilter_tpu import scan_core
-from recfilter_tpu.kernels import fused
-from recfilter_tpu.planner import Plan
-from recfilter_tpu.spec import BorderMode, Dim, FilterSpec, Scan
-
-PLAN = Plan(backend="pallas", interpret=True)
+from recfilter import dimfuse, scan_core
+from recfilter.spec import BorderMode, Dim, FilterSpec, Scan
 
 
 def _img(*shape, seed=0):
@@ -16,8 +14,12 @@ def _img(*shape, seed=0):
     return rng.standard_normal(shape).astype(np.float32)
 
 
+def _run(spec, img):
+    return np.asarray(dimfuse.apply_filter_fused(spec, img))
+
+
 def _check(spec, img, rtol=1e-4, atol=1e-4):
-    got = np.asarray(fused.apply_filter(spec, PLAN, img))
+    got = _run(spec, img)
     want = scan_core.oracle_apply(spec, img).astype(np.float32)
     np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
 
@@ -73,7 +75,7 @@ def test_2d_sat():
 
 
 def test_2d_gaussian_shape_clamped():
-    from recfilter_tpu import iir
+    from recfilter import iir
 
     w = iir.gaussian_weights(1.5, 3)
     spec = FilterSpec(
@@ -122,7 +124,7 @@ def test_3d_middle_axis():
 
 
 def test_matches_einsum_backend():
-    from recfilter_tpu import tiling
+    from recfilter import tiling
 
     spec = FilterSpec(
         "X", (Dim("y", 16), Dim("x", 16)),
@@ -134,45 +136,19 @@ def test_matches_einsum_backend():
         tile_widths=(4, 4),
     )
     img = _img(16, 16, seed=8)
-    got = np.asarray(fused.apply_filter(spec, PLAN, img))
+    got = _run(spec, img)
     want = np.asarray(tiling.apply_filter(spec, img))
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 
 
-def test_plan_knobs_line_block_and_unroll():
-    """Plan.line_block and Plan.unroll are live knobs on the pallas path:
-    results stay exact and the strip picker honors the request."""
-    spec = FilterSpec(
-        "K5", (Dim("y", 24), Dim("x", 16)),
-        (
-            Scan(1, True, 0.9, (0.6, 0.25)),
-            Scan(1, False, 1.1, (0.5, 0.2)),
-        ),
-        tile_widths=(0, 4),
-    )
-    img = _img(24, 16, seed=7)
-    want = scan_core.oracle_apply(spec, img).astype(np.float32)
-    for lb, un in [(8, 1), (16, 4), (0, 100)]:
-        plan = Plan(backend="pallas", interpret=True, line_block=lb, unroll=un)
-        got = np.asarray(fused.apply_filter(spec, plan, img))
-        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
-    # The picker respects a request (quantized to the sublane alignment).
-    assert fused._pick_line_block(1024, quantum=8, limit=4096, request=24) == 24
-    assert fused._pick_line_block(1024, quantum=8, limit=4096, request=30) == 24
-    # ... but never exceeds the VMEM budget.
-    auto = fused._pick_line_block(8192, quantum=8, limit=4096)
-    assert fused._pick_line_block(8192, quantum=8, limit=4096, request=10**6) == auto
-
-
 def test_stencil2d_kernel_matches_shift_oracle():
-    """Fused 2-D stencil bank (row-halo strips + in-block lane shifts) vs
-    the pad/slice oracle: dual-radius 4-corner differencing with mixed
-    clamp/zero edge semantics, plus gradients through the custom VJP."""
+    """2-D stencil bank (XLA shifts, ``dimfuse.apply_stencil2d``) vs the
+    app's separable pad/slice differencing: dual-radius 4-corner taps with
+    mixed clamp/zero edge semantics, plus gradients."""
     import jax
     import jax.numpy as jnp
 
-    from recfilter_tpu.kernels import stencil2d
-    from recfilter_tpu.apps.dog import _diff_xy
+    from recfilter.apps.dog import _diff_xy
 
     rng = np.random.default_rng(44)
     H, W = 96, 160
@@ -183,19 +159,17 @@ def test_stencil2d_kernel_matches_shift_oracle():
         return [(B, B, sc), (B, -B - 1, -sc), (-B - 1, B, -sc),
                 (-B - 1, -B - 1, sc)]
 
-    got = stencil2d.stencil2d_pass(
-        jnp.asarray(s), [taps(3), taps(7)], interpret=True)
-    assert got is not None
+    got = dimfuse.apply_stencil2d(jnp.asarray(s), [taps(3), taps(7)])
+    assert len(got) == 2
     want = np.stack([np.asarray(_diff_xy(jnp.asarray(s), B, W, H))
                      for B in (3, 7)])
     np.testing.assert_allclose(np.stack([np.asarray(g) for g in got]),
                                want, rtol=0, atol=1e-6)
 
-    # gradient via the shift twin
     ct = jnp.asarray(rng.standard_normal((2, H, W)).astype(np.float32))
 
     def f(v):
-        y = stencil2d.stencil2d_pass(v, [taps(3), taps(7)], interpret=True)
+        y = dimfuse.apply_stencil2d(v, [taps(3), taps(7)])
         return (jnp.stack(y) * ct).sum()
 
     def f_ref(v):
@@ -207,104 +181,53 @@ def test_stencil2d_kernel_matches_shift_oracle():
     np.testing.assert_allclose(g, g_ref, rtol=1e-5, atol=1e-5)
 
 
-def test_moments_px_kernel_modes_equal():
-    """The M-stacked level-dot mode (2, default) matches the per-pair (0)
-    and level-slice (1) product schedules to the last ulp or two — same
-    bf16 products, f32 accumulation regrouped (in-dot vs per-pair adds)."""
-    import os
-
-    import jax.numpy as jnp
-
-    from recfilter_tpu.kernels import final2d as k2d
-
-    rng = np.random.default_rng(3)
-    p, na, Ta, nb, Tb = 1, 3, 128, 2, 128
-    x = jnp.asarray(rng.standard_normal((p, na, Ta, nb * Tb)), jnp.float32)
-    Ga = rng.standard_normal((1, 6, Ta))
-    Gb = rng.standard_normal((1, 5, Tb))
-    outs = {}
-    old = os.environ.get("RECFILTER_PXM_KMODE")
-    try:
-        for m in ("0", "1", "2"):
-            os.environ["RECFILTER_PXM_KMODE"] = m
-            bA, U = k2d.moments2d_px(x, Ga, Gb, nprod=6,
-                                     interpret=True)[:2]
-            outs[m] = (np.asarray(bA), np.asarray(U))
-    finally:
-        if old is None:
-            os.environ.pop("RECFILTER_PXM_KMODE", None)
-        else:
-            os.environ["RECFILTER_PXM_KMODE"] = old
-    for m in ("1", "2"):
-        for i in range(2):
-            sc = np.max(np.abs(outs["0"][i]))
-            np.testing.assert_allclose(outs[m][i], outs["0"][i],
-                                       rtol=0, atol=1e-6 * sc)
-
-
 def test_tails_pass_mstack_accuracy_ladder():
-    """tails_pass (M-stacked level dots) tracks each precision grade's
-    expected error vs the HIGHEST einsum twin."""
+    """The split-bf16 tails product (``dimfuse._split_einsum``) tracks each
+    precision grade's expected error vs the HIGHEST einsum."""
     import jax
     import jax.numpy as jnp
-
-    from recfilter_tpu.kernels import completion as C
 
     rng = np.random.default_rng(4)
     q, n, T = 384, 3, 128
     x = jnp.asarray(rng.standard_normal((q, n, T)), jnp.float32)
-    G = rng.standard_normal((1, 6, T))
-    Gp = np.zeros((n, 8, T), np.float32)
-    Gp[:, :6] = G[0]
+    G = rng.standard_normal((8, T))
+    G[6:] = 0.0
     ref = np.asarray(jnp.einsum(
-        "nst,qnt->nsq", jnp.asarray(Gp), x,
+        "st,qnt->qns", jnp.asarray(G, jnp.float32), x,
         precision=jax.lax.Precision.HIGHEST))
     scale = np.max(np.abs(ref))
-    for nprod, tol in ((6, 1e-5), (3, 2e-3), (1, 2e-2)):
-        y = np.asarray(C.tails_pass(x, G, nprod=nprod, interpret=True))
+    for nprod, tol in ((6, 1e-5), (3, 2e-3)):
+        y = np.asarray(dimfuse._split_einsum(
+            "st,qnt->qns", G, x, nprod, jnp.float32))
         assert np.max(np.abs(y - ref)) / scale < tol, nprod
+    # one plain bf16 product: the bf16 rounding class
+    y1 = np.asarray(jnp.einsum(
+        "st,qnt->qns", jnp.asarray(G, jnp.bfloat16), x.astype(jnp.bfloat16),
+        preferred_element_type=jnp.float32))
+    assert np.max(np.abs(y1 - ref)) / scale < 2e-2
 
 
 def test_multislot_kernels_oracle_and_grad():
-    """Round-5 (VERDICT r4 #2): carries past ΣK=8 ride ⌈S/8⌉ sublane
-    slots through tails_pass + pad_solve_matrix + completion_pass — the
-    kernel route for the reference's order-9..29 audio sweep. Pins the
-    full dimension pass vs the oracle at f32 grade AND jax.grad through
-    the multi-slot kernels (einsum-twin VJP)."""
+    """Carries past ΣK=8 (order 13) through the full dimension pass vs the
+    oracle at f32 grade, and jax.grad through the px6 split products (the
+    custom VJP's HIGHEST transpose) vs the HIGHEST einsum path."""
     import jax
     import jax.numpy as jnp
 
-    from recfilter_tpu import dimfuse, scan_core
-    from recfilter_tpu.kernels import completion as C
-    from recfilter_tpu.spec import BorderMode, Scan
-
     rng = np.random.default_rng(9)
-    order = 13  # 2 slots
+    order = 13
     fb = tuple(rng.uniform(-0.04, 0.04, order))
     s = Scan(1, True, 1.1, fb)
     x = (rng.standard_normal((16, 512)) * 0.1).astype(np.float32)
 
-    calls = []
-    orig = C.completion_pass
-
-    def spy(*a, **k):
-        calls.append(np.asarray(a[2]).shape[-1])
-        return orig(*a, **k)
-
-    C.completion_pass = spy
-    try:
-        got = np.asarray(dimfuse.fused_dim_pass(
-            jnp.asarray(x), 1, [s], 128, BorderMode.ZERO,
-            matmul_precision="px6"))
-    finally:
-        C.completion_pass = orig
-    assert calls == [order], calls  # multi-slot kernel route engaged
+    got = np.asarray(dimfuse.fused_dim_pass(
+        jnp.asarray(x), 1, [s], 128, BorderMode.ZERO,
+        matmul_precision="px6"))
     want = scan_core.oracle_apply_scan(
         x.astype(np.float64), 1, True, 1.1, list(fb), BorderMode.ZERO)
     scale = np.abs(want).max()
     assert np.abs(got - want).max() <= 2e-6 * scale
 
-    # grad through the multi-slot kernels matches the HIGHEST einsum path
     ct = jnp.asarray(rng.standard_normal(x.shape), jnp.float32)
 
     def loss(mode):

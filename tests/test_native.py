@@ -7,8 +7,8 @@ entry point bit-matches its numpy twin.
 import numpy as np
 import pytest
 
-from recfilter_tpu import coeffs, iir
-from recfilter_tpu.utils import native
+from recfilter import coeffs, iir
+from recfilter.utils import native
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -88,7 +88,7 @@ def test_native_ppm_roundtrip(tmp_path):
         b = native.ppm_read(p)
         np.testing.assert_array_equal(a.reshape(b.shape), b)
         # cross-check with the pure-python reader
-        from recfilter_tpu.utils import image_io
+        from recfilter.utils import image_io
 
         c = image_io.load_ppm(p, dtype=np.uint8)
         np.testing.assert_array_equal(b, c)

@@ -4,8 +4,8 @@
 import numpy as np
 import pytest
 
-from recfilter_tpu import dimfuse, overlap2d, scan_core
-from recfilter_tpu.spec import BorderMode, Dim, FilterSpec, Scan
+from recfilter import dimfuse, overlap2d, scan_core
+from recfilter.spec import BorderMode, Dim, FilterSpec, Scan
 
 
 def _img(*shape, seed=0):
@@ -35,7 +35,7 @@ def test_sat_2d():
 
 @pytest.mark.parametrize("border", [BorderMode.ZERO, BorderMode.CLAMP])
 def test_gaussian_shape_both_dims(border):
-    from recfilter_tpu import iir
+    from recfilter import iir
 
     w3 = iir.gaussian_weights(2.0, 3)
     spec = _spec(
@@ -131,9 +131,9 @@ def test_batch_axis_untouched():
 
 @pytest.mark.parametrize("border", [BorderMode.ZERO, BorderMode.CLAMP])
 def test_kernel_path_matches_xla_path(border):
-    """The Pallas 3-touch pipeline (interpret mode) must equal the XLA
-    5-touch pipeline and the oracle."""
-    from recfilter_tpu import iir
+    """The overlap backend's 5-touch cross-dimension pipeline must equal the
+    shipping rotation-chained executor and the oracle."""
+    from recfilter import iir
 
     w3 = iir.gaussian_weights(1.5, 3)
     spec = _spec(
@@ -146,12 +146,9 @@ def test_kernel_path_matches_xla_path(border):
         border=border, h=24, w=24, tiles=(8, 8),
     )
     x = _img(24, 24, seed=7)
-    got = np.asarray(
-        overlap2d.apply_filter_overlap(
-            spec, x, use_kernels=True, interpret=True
-        )
-    )
-    want = np.asarray(overlap2d.apply_filter_overlap(spec, x))
+    got = np.asarray(overlap2d.apply_filter_overlap(spec, x))
+    want = np.asarray(dimfuse.apply_filter_fused(
+        spec, x, matmul_precision="highest"))
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(got, _oracle(spec, x), rtol=1e-3, atol=1e-4)
 
@@ -164,11 +161,7 @@ def test_kernel_path_batch_axis():
     dims = (Dim("c", 2), Dim("y", 16), Dim("x", 16))
     spec = FilterSpec("KB", dims, tuple(spec_scans), tile_widths=(0, 4, 4))
     x = _img(2, 16, 16, seed=8)
-    got = np.asarray(
-        overlap2d.apply_filter_overlap(
-            spec, x, use_kernels=True, interpret=True
-        )
-    )
+    got = np.asarray(overlap2d.apply_filter_overlap(spec, x))
     np.testing.assert_allclose(got, _oracle(spec, x), rtol=1e-4, atol=1e-4)
 
 
@@ -181,11 +174,7 @@ def test_kernel_path_non_dividing():
         h=19, w=21, tiles=(5, 6),
     )
     x = _img(19, 21, seed=9)
-    got = np.asarray(
-        overlap2d.apply_filter_overlap(
-            spec, x, use_kernels=True, interpret=True
-        )
-    )
+    got = np.asarray(overlap2d.apply_filter_overlap(spec, x))
     np.testing.assert_allclose(got, _oracle(spec, x), rtol=1e-4, atol=1e-4)
 
 
@@ -194,8 +183,8 @@ def test_fused_nd_pass_3d_matches_oracle():
     causality/orders, non-dividing extents — vs the float64 oracle."""
     import jax.numpy as jnp
 
-    from recfilter_tpu import overlap2d, scan_core
-    from recfilter_tpu.spec import Dim, FilterSpec, Scan
+    from recfilter import overlap2d, scan_core
+    from recfilter.spec import Dim, FilterSpec, Scan
 
     spec = FilterSpec(
         "ND3",
@@ -220,8 +209,8 @@ def test_fused_nd_pass_3d_clamp_and_routing():
     the routing must actually take fused_nd_pass, not the pairwise loop."""
     import jax.numpy as jnp
 
-    from recfilter_tpu import overlap2d, scan_core
-    from recfilter_tpu.spec import BorderMode, Dim, FilterSpec, Scan
+    from recfilter import overlap2d, scan_core
+    from recfilter.spec import BorderMode, Dim, FilterSpec, Scan
 
     spec = FilterSpec(
         "ND3C",
@@ -255,15 +244,15 @@ def test_fused_nd_pass_3d_clamp_and_routing():
 
 
 # ---------------------------------------------------------------------------
-# Split-bf16 (px) 3-touch path — fused_2d_px + routing (round 3)
+# Split-bf16 (px) grades through the shipping 2-D executor
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("border", [BorderMode.ZERO, BorderMode.CLAMP])
 def test_px_path_matches_oracle(border):
-    """fused_2d_px (interpret) must hold the f32 SNR bar vs the f64 oracle:
-    compensated 6-product dots in both kernels, HIGHEST solves."""
-    from recfilter_tpu import iir
+    """The px6 2-D executor must hold the f32 SNR bar vs the f64 oracle:
+    compensated 6-product dots in both passes, HIGHEST solves."""
+    from recfilter import iir
 
     w3 = iir.gaussian_weights(2.0, 3)
     spec = _spec(
@@ -276,19 +265,15 @@ def test_px_path_matches_oracle(border):
         border=border, h=128, w=256, tiles=(128, 128),
     )
     x = _img(128, 256, seed=20)
-    got = overlap2d.fused_2d_px(
-        x, 0, [spec.scans[2], spec.scans[3]],
-        1, [spec.scans[0], spec.scans[1]], border, 6, True,
-    )
-    assert got is not None
+    got = dimfuse.apply_filter_fused(spec, x, matmul_precision="px6")
     want = scan_core.oracle_apply(spec, x.astype(np.float64))
     np.testing.assert_allclose(
         np.asarray(got), want.astype(np.float32), rtol=2e-5, atol=2e-6)
 
 
 def test_px_path_routing_and_non_dividing():
-    """apply_filter_fused with a px mode must route trailing-2-D filters
-    through fused_2d_px (zero border pads to the lane tile)."""
+    """apply_filter_fused with a px mode routes trailing-2-D filters through
+    two rotated passes (zero border pads non-dividing extents)."""
     import jax.numpy as jnp
 
     spec = _spec(
@@ -300,28 +285,27 @@ def test_px_path_routing_and_non_dividing():
     )
     x = _img(130, 250, seed=21)
     calls = []
-    orig = overlap2d.fused_2d_px
+    orig = dimfuse._last_axis_pass_t
 
     def spy(*a, **k):
-        r = orig(*a, **k)
-        calls.append(r is not None)
-        return r
+        calls.append(k.get("rot_axes"))
+        return orig(*a, **k)
 
-    overlap2d.fused_2d_px = spy
+    dimfuse._last_axis_pass_t = spy
     try:
         got = np.asarray(dimfuse.apply_filter_fused(
             spec, jnp.asarray(x), matmul_precision="px6"))
     finally:
-        overlap2d.fused_2d_px = orig
-    assert calls == [True]
+        dimfuse._last_axis_pass_t = orig
+    assert calls == [2, 2]
     want = scan_core.oracle_apply(spec, x.astype(np.float64))
     np.testing.assert_allclose(got, want.astype(np.float32),
                                rtol=2e-5, atol=2e-6)
 
 
 def test_px_path_batch_and_grad():
-    """Leading batch axis folds into the kernel grid; jax.grad flows
-    through the custom VJPs (einsum twins) at f32 grade."""
+    """Leading batch axis rides the einsum batch; jax.grad flows through
+    the split products' custom VJPs at f32 grade."""
     import jax
     import jax.numpy as jnp
 
@@ -353,11 +337,9 @@ def test_px_path_batch_and_grad():
 
 
 def test_px_path_epilogue_fused_into_final_kernel():
-    """In the 3-touch px route an elementwise epilogue must ride the fused
-    dual-completion kernel (applied per out-block in VMEM), matching the
-    unfused combine."""
+    """At px6 an elementwise epilogue rides the final pass's emit,
+    matching the unfused combine."""
     import jax.numpy as jnp
-    from recfilter_tpu.kernels import final2d as k2d
 
     spec = _spec(
         [
@@ -372,22 +354,10 @@ def test_px_path_epilogue_fused_into_final_kernel():
     def combine(blur, image):
         return 2.0 * image - 0.5 * blur
 
-    seen = []
-    orig = k2d.final2d_px
-
-    def spying(*a, **k):
-        seen.append(k.get("epilogue") is not None)
-        return orig(*a, **k)
-
-    k2d.final2d_px = spying
-    try:
-        got = np.asarray(dimfuse.apply_filter_fused(
-            spec, jnp.asarray(x), matmul_precision="px6",
-            epilogue=combine, eaux=(jnp.asarray(aux),),
-        ))
-    finally:
-        k2d.final2d_px = orig
-    assert seen == [True]
+    got = np.asarray(dimfuse.apply_filter_fused(
+        spec, jnp.asarray(x), matmul_precision="px6",
+        epilogue=combine, eaux=(jnp.asarray(aux),),
+    ))
     plain = np.asarray(dimfuse.apply_filter_fused(
         spec, jnp.asarray(x), matmul_precision="px6"))
     np.testing.assert_allclose(got, 2.0 * aux - 0.5 * plain, rtol=0,
@@ -395,11 +365,9 @@ def test_px_path_epilogue_fused_into_final_kernel():
 
 
 def test_px_path_bf16_storage_mode():
-    """bf16 storage routes through the 3-touch overlapped path with one
-    plain product (half the image traffic of the f32 modes) and holds the
-    bf16 rounding bound."""
+    """bf16 storage (one plain bf16 product, half the image traffic of
+    the f32 modes) holds the bf16 rounding bound and emits bf16."""
     import jax.numpy as jnp
-    from recfilter_tpu.kernels import final2d as k2d
 
     spec = _spec(
         [
@@ -412,21 +380,10 @@ def test_px_path_bf16_storage_mode():
     spec = dataclasses.replace(spec, dtype="bfloat16")
     x = _img(128, 256, seed=33)
 
-    seen = []
-    orig = k2d.final2d_px
-
-    def spy(xk, *a, **k):
-        seen.append((xk.dtype, k.get("nprod")))
-        return orig(xk, *a, **k)
-
-    k2d.final2d_px = spy
-    try:
-        got = np.asarray(dimfuse.apply_filter_fused(
-            spec, jnp.asarray(x, jnp.bfloat16),
-            matmul_precision="px6").astype(jnp.float32))
-    finally:
-        k2d.final2d_px = orig
-    assert seen == [(jnp.bfloat16, 1)]
+    y = dimfuse.apply_filter_fused(
+        spec, jnp.asarray(x, jnp.bfloat16), matmul_precision="px6")
+    assert y.dtype == jnp.bfloat16
+    got = np.asarray(y.astype(jnp.float32))
     want = scan_core.oracle_apply(spec.with_dtype("float32")
                                   if hasattr(spec, "with_dtype") else
                                   dataclasses.replace(spec, dtype="float32"),
@@ -436,11 +393,9 @@ def test_px_path_bf16_storage_mode():
 
 
 def test_px_path_throughput_mode():
-    """matmul_precision="default" (the throughput mode) routes through the
-    3-touch path with one plain product — the same rounding class as XLA's
-    single-pass bf16 dots, on 3 image touches instead of 5."""
+    """matmul_precision="default" (the throughput mode: XLA's own dot
+    precision, TF32 on the GPU) holds its bound vs the oracle."""
     import jax.numpy as jnp
-    from recfilter_tpu.kernels import final2d as k2d
 
     spec = _spec(
         [
@@ -451,20 +406,8 @@ def test_px_path_throughput_mode():
     )
     x = _img(128, 256, seed=35)
 
-    seen = []
-    orig = k2d.final2d_px
-
-    def spy(xk, *a, **k):
-        seen.append(k.get("nprod"))
-        return orig(xk, *a, **k)
-
-    k2d.final2d_px = spy
-    try:
-        got = np.asarray(dimfuse.apply_filter_fused(
-            spec, jnp.asarray(x), matmul_precision="default"))
-    finally:
-        k2d.final2d_px = orig
-    assert seen == [1]
+    got = np.asarray(dimfuse.apply_filter_fused(
+        spec, jnp.asarray(x), matmul_precision="default"))
     want = scan_core.oracle_apply(spec, x.astype(np.float64))
     scale = np.abs(want).max()
     assert np.abs(got - want).max() <= 3e-2 * scale
@@ -499,13 +442,13 @@ def _corner_taps(B):
 
 
 def test_fused_2d_stencil_consumer_vs_oracle():
-    """stencil2d= fuses a dual-radius 4-corner tap bank (DoG's SAT
-    differencing, diff_gauss.cpp:29-38) into the 3-touch executor's emit;
-    every region — lane-block boundaries (W > one lane block), tile edges,
-    global borders — must match the f64 SAT+shift oracle."""
+    """stencil2d= applies a dual-radius 4-corner tap bank (DoG's SAT
+    differencing, diff_gauss.cpp:29-38) to the executor's output; every
+    region — tile edges, global borders — must match the f64 SAT+shift
+    oracle."""
     import jax.numpy as jnp
 
-    H, W = 256, 2560  # Lb = 1280: TWO lane blocks, edge sub-tiles live
+    H, W = 256, 2560
     spec = _spec(
         [Scan(1, True, 1.0, (1.0,)), Scan(0, True, 1.0, (1.0,))],
         h=H, w=W, tiles=(128, 128),
@@ -580,9 +523,8 @@ def test_fused_2d_stencil_fallback_matches():
 
 
 def test_volume_rows_plus_2d_route():
-    """Ds=3 volumes: leading scan axis through the sublane rows-pass
-    kernels, trailing pair through the 3-touch executor — vs the oracle,
-    both borders, including carry coupling across all three axes."""
+    """Ds=3 volumes through three rotated passes — vs the oracle, both
+    borders, including carry coupling across all three axes."""
     import jax.numpy as jnp
 
     Z, Y, W = 128, 128, 256
@@ -606,11 +548,10 @@ def test_volume_rows_plus_2d_route():
 
 
 def test_volume_rows_route_chain_fallback():
-    """When the trailing pair's gates fail (non-128 y extent), the rows
-    pass still applies and the remaining two axes finish via the chain."""
+    """Mixed tile widths per axis (non-128 y extent) on a volume."""
     import jax.numpy as jnp
 
-    Z, Y, W = 128, 40, 128  # y < 128: fused_2d_px declines
+    Z, Y, W = 128, 40, 128
     x = _img(Z, Y, W, seed=51) * 0.1
     spec = FilterSpec(
         "V3F", (Dim("z", Z), Dim("y", Y), Dim("x", W)),
@@ -628,10 +569,9 @@ def test_volume_rows_route_chain_fallback():
 
 
 def test_rows_route_single_nonlast_axis():
-    """Single-dimension scans OFF the last array axis route through the
-    sublane rows-pass kernels (the einsum form there lowers to
-    convolutions); clamp edge variants and mixed non-adjacent axis sets
-    must match the oracle."""
+    """Single-dimension scans OFF the last array axis (moved-axis rotated
+    passes): clamp edge variants and mixed non-adjacent axis sets must
+    match the oracle."""
     import jax.numpy as jnp
 
     x = _img(256, 384, seed=52) * 0.1

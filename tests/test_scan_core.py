@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from recfilter_tpu import scan_core
-from recfilter_tpu.spec import BorderMode, Dim, FilterSpec, Scan
+from recfilter import scan_core
+from recfilter.spec import BorderMode, Dim, FilterSpec, Scan
 
 CASES = [
     (1.0, [1.0]),

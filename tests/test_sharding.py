@@ -10,12 +10,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from recfilter_tpu import scan_core
-from recfilter_tpu.parallel import sharding
-from recfilter_tpu.planner import Plan
-from recfilter_tpu.spec import BorderMode, Dim, FilterSpec, Scan
+from recfilter import scan_core
+from recfilter.parallel import sharding
+from recfilter.planner import Plan
+from recfilter.spec import BorderMode, Dim, FilterSpec, Scan
 
-PLAN = Plan(interpret=True)
+PLAN = Plan()
 
 
 def _img(*shape, seed=0):
@@ -228,7 +228,7 @@ def test_integer_seq_parallel_raises(devices):
 def test_sharded_gaussian_3xy_matches_oracle(devices):
     """VERDICT r1 acceptance: the flagship clamped-border app seq-shards on
     the 8-device mesh and matches the oracle."""
-    from recfilter_tpu.apps import gaussian
+    from recfilter.apps import gaussian
 
     mesh = sharding.make_mesh((8,), ("seq",))
     F = gaussian.gaussian_3xy(64, 16, tile_width=8, sigma=3.0)
@@ -342,7 +342,7 @@ def test_data_non_dividing_extent(devices):
 
 def test_distributed_helpers(devices):
     """Single-process degradation of the pod entry points."""
-    from recfilter_tpu.parallel import distributed
+    from recfilter.parallel import distributed
 
     assert distributed.initialize() in (False, True)
     mesh = distributed.pod_mesh(data=2, seq=4)
@@ -362,11 +362,11 @@ def test_host_sharded_io_roundtrip_and_filter(tmp_path):
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
 
-    from recfilter_tpu.parallel import io as pio
-    from recfilter_tpu.parallel.distributed import pod_mesh
-    from recfilter_tpu.parallel.sharding import sharded_apply_filter
-    from recfilter_tpu.planner import Plan
-    from recfilter_tpu.spec import Dim, FilterSpec, Scan
+    from recfilter.parallel import io as pio
+    from recfilter.parallel.distributed import pod_mesh
+    from recfilter.parallel.sharding import sharded_apply_filter
+    from recfilter.planner import Plan
+    from recfilter.spec import Dim, FilterSpec, Scan
 
     mesh = pod_mesh(data=2, seq=4)
     src = np.arange(64 * 96, dtype=np.float32).reshape(64, 96) * 1e-3
@@ -396,7 +396,7 @@ def test_host_sharded_io_roundtrip_and_filter(tmp_path):
     y = sharded_apply_filter(
         spec, Plan(), mesh, got, data_axis=0, seq_axis=1
     )
-    from recfilter_tpu import scan_core
+    from recfilter import scan_core
 
     want = scan_core.oracle_apply(spec, src.astype(np.float64))
     np.testing.assert_allclose(np.asarray(y), want.astype(np.float32),
@@ -408,13 +408,12 @@ def test_host_sharded_io_roundtrip_and_filter(tmp_path):
 
 
 def test_data_parallel_shipping_executor_route_and_grade(devices):
-    """VERDICT r3 #2: with no sharded scan dimension, every device runs the
-    COMPLETE shipping executor — the 3-touch overlapped px path — at the
-    Plan's default precision. Pins BOTH the route (``fused_2d_px`` taken
-    and not bailed) and the numeric grade (px6 f32 bound, not a loose
-    rtol). Matches the single-execution-path contract of
-    ``lib/recfilter.cpp:932-1016``."""
-    from recfilter_tpu import overlap2d
+    """With no sharded scan dimension, every device runs the COMPLETE
+    shipping executor (``dimfuse.apply_filter_fused``) at the Plan's
+    default precision. Pins BOTH the route and the numeric grade (px6 f32
+    bound, not a loose rtol). Matches the single-execution-path contract
+    of ``lib/recfilter.cpp:932-1016``."""
+    from recfilter import dimfuse
 
     mesh = sharding.make_mesh((4,), ("data",))
     spec = FilterSpec(
@@ -429,32 +428,32 @@ def test_data_parallel_shipping_executor_route_and_grade(devices):
     img = _img(8, 128, 128, seed=40)
 
     taken = []
-    orig = overlap2d.fused_2d_px
+    orig = dimfuse.apply_filter_fused
 
-    def spy(*a, **k):
-        r = orig(*a, **k)
-        taken.append(r is not None)
-        return r
+    def spy(spec_, x, *a, **k):
+        taken.append((x.shape, k.get("matmul_precision")))
+        return orig(spec_, x, *a, **k)
 
-    overlap2d.fused_2d_px = spy
+    dimfuse.apply_filter_fused = spy
     try:
         got = np.asarray(
             sharding.sharded_apply_filter(
-                spec, Plan(interpret=True), mesh, img, data_axis=0
+                spec, Plan(), mesh, img, data_axis=0
             )
         )
     finally:
-        overlap2d.fused_2d_px = orig
-    assert taken == [True], "local shards must take the 3-touch px executor"
+        dimfuse.apply_filter_fused = orig
+    # one local shard (8/4 channels) through the shipping executor at px6
+    assert taken == [((2, 128, 128), "px6")], taken
     want = scan_core.oracle_apply(spec, img.astype(np.float64))
     scale = np.abs(want).max()
     assert np.abs(got - want).max() <= 2e-6 * scale  # px6 true-f32 grade
 
 
 def test_seq_sharded_px6_route_and_grade(devices):
-    """VERDICT r3 #2: sequence-sharded local passes thread the Plan's
-    precision mode into the einsum/px executors (not silently HIGHEST),
-    and the end-to-end result holds the px6 f32 bound."""
+    """Sequence-sharded local passes thread the Plan's precision mode into
+    the local executors (not silently HIGHEST), and the end-to-end result
+    holds the px6 f32 bound."""
     mesh = sharding.make_mesh((4,), ("seq",))
     spec = FilterSpec(
         "SeqShip", (Dim("y", 128), Dim("x", 512)),
@@ -467,39 +466,36 @@ def test_seq_sharded_px6_route_and_grade(devices):
     )
     img = _img(128, 512, seed=41)
 
+    from recfilter import dimfuse
+
     seen = []
     orig = sharding._local_apply_dim
-    nprods = []
-    from recfilter_tpu import overlap2d as _o2d
-
-    orig_f = _o2d.fused_2d_px
+    orig_f = dimfuse.apply_filter_fused
+    grades = []
 
     def spy(*a, **k):
         seen.append(k.get("matmul_precision", "highest"))
         return orig(*a, **k)
 
-    def spy_f(*a, **k):
-        if k.get("seq_hook") is not None:
-            nprods.append(a[6])  # nprod positional
-        return orig_f(*a, **k)
+    def spy_f(spec_, x, *a, **k):
+        grades.append(k.get("matmul_precision"))
+        return orig_f(spec_, x, *a, **k)
 
     sharding._local_apply_dim = spy
-    _o2d.fused_2d_px = spy_f
+    dimfuse.apply_filter_fused = spy_f
     try:
         got = np.asarray(
             sharding.sharded_apply_filter(
-                spec, Plan(interpret=True), mesh, img, seq_axis=1
+                spec, Plan(), mesh, img, seq_axis=1
             )
         )
     finally:
         sharding._local_apply_dim = orig
-        _o2d.fused_2d_px = orig_f
-    # Round-5: the fully-fused seq route runs the whole local inside
-    # fused_2d_px at the Plan's px6 product count (no _local_apply_dim
-    # calls at all); if its gates had failed, the cascade path must
-    # thread px6 into every local pass.
-    assert (nprods and all(np_ == 6 for np_ in nprods)) or (
-        seen and all(p == "px6" for p in seen)), (nprods, seen)
+        dimfuse.apply_filter_fused = orig_f
+    # the whole local runs the shipping executor at px6, and the deferred
+    # carry pass over the unsharded dim too
+    assert grades == ["px6"], grades
+    assert seen and all(p == "px6" for p in seen), seen
     want = scan_core.oracle_apply(spec, img.astype(np.float64))
     scale = np.abs(want).max()
     assert np.abs(got - want).max() <= 4e-6 * scale  # px6 grade + exchange
@@ -577,7 +573,7 @@ def test_exchange_overlap_deferral(exchange, border):
     result is consumed only at the end; every operator is linear, so the
     correction runs through the same local passes carry-sized). Must match
     the oracle, and the deferral must actually engage."""
-    from recfilter_tpu.parallel import sharding as sh
+    from recfilter.parallel import sharding as sh
 
     mesh = sh.make_mesh((4,), ("seq",))
     spec = FilterSpec(
@@ -604,7 +600,7 @@ def test_exchange_overlap_deferral(exchange, border):
     try:
         got = np.asarray(
             sh.sharded_apply_filter(
-                spec, Plan(interpret=True), mesh, jnp.asarray(x),
+                spec, Plan(), mesh, jnp.asarray(x),
                 seq_axis=1, exchange=exchange,
             )
         )
@@ -618,15 +614,14 @@ def test_exchange_overlap_deferral(exchange, border):
 
 
 def test_sharded_kernel_route_gradient(devices):
-    """Round-4 regression: ``jax.grad`` through the sharded SHIPPING
-    executor (px kernels inside shard_map, 128-wide tiles so the kernel
-    gates HOLD) must compute. A jnp constant materialized inside the
-    shard_map trace — as a pallas operand or a custom-VJP twin closure —
-    leaks a tracer into the linearized jaxpr ("No constant handler for
-    DynamicJaxprTracer"); every kernel constant therefore stays numpy
-    (``kernels.completion._split_const``). Pins grad availability AND its
-    f32 grade vs the unsharded executor on both routes."""
-    from recfilter_tpu import dimfuse
+    """``jax.grad`` through the sharded SHIPPING executor (px6 split
+    products inside shard_map) must compute. A jnp constant materialized
+    inside the shard_map trace as a custom-VJP closure leaks a tracer into
+    the linearized jaxpr ("No constant handler for DynamicJaxprTracer");
+    the split constants therefore stay numpy (``dimfuse._split_einsum``).
+    Pins grad availability AND its f32 grade vs the unsharded executor on
+    both routes."""
+    from recfilter import dimfuse
 
     spec = FilterSpec(
         "GradShip", (Dim("c", 8), Dim("y", 128), Dim("x", 128)),
@@ -646,15 +641,15 @@ def test_sharded_kernel_route_gradient(devices):
         ({"seq_axis": 1}, sharding.make_mesh((4,), ("seq",))),
     ):
         fn = sharding.make_sharded_filter(
-            spec, Plan(interpret=True), mesh, **kw)
+            spec, Plan(), mesh, **kw)
         g = jax.grad(lambda z: (fn(z) ** 2).mean())(img)
         assert float(jnp.abs(g - g_ref).max()) <= 4e-6 * scale, kw
 
 
 def test_integer_data_parallel_unit_kernels(devices):
-    """Data-parallel integer shards take the wrapping additive kernels
-    inside shard_map (the same single-chip unit route), bit-exact."""
-    from recfilter_tpu.kernels import int_scan
+    """Data-parallel integer shards take the wrapping additive route
+    inside shard_map (the same single-device unit route), bit-exact."""
+    from recfilter import dimfuse
 
     spec = FilterSpec(
         "IntShip", (Dim("c", 8), Dim("y", 256), Dim("x", 256)),
@@ -665,22 +660,22 @@ def test_integer_data_parallel_unit_kernels(devices):
         -2 ** 20, 2 ** 20, (8, 256, 256)).astype(np.int32)
     mesh = sharding.make_mesh((4,), ("data",))
     calls = []
-    orig = int_scan.int_unit_dim_pass
+    orig = dimfuse.int_unit_dim_pass
 
-    def spy(x, scans, axis, interpret):
+    def spy(x, units, axis):
         calls.append(axis)
-        return orig(x, scans, axis, interpret)
+        return orig(x, units, axis)
 
-    int_scan.int_unit_dim_pass = spy
+    dimfuse.int_unit_dim_pass = spy
     try:
         got = np.asarray(
             sharding.sharded_apply_filter(
-                spec, Plan(interpret=True), mesh, jnp.asarray(img),
+                spec, Plan(), mesh, jnp.asarray(img),
                 data_axis=0,
             )
         )
     finally:
-        int_scan.int_unit_dim_pass = orig
+        dimfuse.int_unit_dim_pass = orig
     assert calls and sorted(set(calls)) == [1, 2], calls
     want = scan_core.oracle_apply(spec, img)
     np.testing.assert_array_equal(got, np.asarray(want).astype(np.int32))
@@ -688,14 +683,13 @@ def test_integer_data_parallel_unit_kernels(devices):
 
 @pytest.mark.parametrize("exchange", ["gather", "ring"])
 def test_seq_sharded_3touch_executor(devices, exchange):
-    """Round-5 (VERDICT r4 #3): 2-D filters with one sequence-sharded scan
-    dimension run their ENTIRE device-local work through the shipping
-    3-touch overlapped executor (final2d_px spied), with the sharded dim's
-    carries extracted straight from the input by the Gdev einsum and one
-    deferred injection — oracle-exact at f32 grade, grad included."""
-    from recfilter_tpu import dimfuse
-    from recfilter_tpu.kernels import final2d
-    from recfilter_tpu.parallel import sharding as sh
+    """2-D filters with one sequence-sharded scan dimension run their
+    ENTIRE device-local work through the shipping executor
+    (``apply_filter_fused`` spied), with the sharded dim's carries
+    extracted straight from the input by the Gdev einsum and one deferred
+    injection — oracle-exact at f32 grade, grad included."""
+    from recfilter import dimfuse
+    from recfilter.parallel import sharding as sh
 
     rng = np.random.default_rng(11)
     spec = FilterSpec(
@@ -709,7 +703,7 @@ def test_seq_sharded_3touch_executor(devices, exchange):
 
     fcalls, kcalls = [], []
     orig_f = sh._seq_fused2d
-    orig_k = final2d.final2d_px
+    orig_k = dimfuse.apply_filter_fused
 
     def spy_f(*a, **k):
         r = orig_f(*a, **k)
@@ -721,17 +715,17 @@ def test_seq_sharded_3touch_executor(devices, exchange):
         return orig_k(*a, **k)
 
     sh._seq_fused2d = spy_f
-    final2d.final2d_px = spy_k
+    dimfuse.apply_filter_fused = spy_k
     try:
         fn = sh.make_sharded_filter(
-            spec, Plan(interpret=True, matmul_precision="px6"), mesh,
+            spec, Plan(matmul_precision="px6"), mesh,
             seq_axis=1, exchange=exchange)
         got = np.asarray(fn(jnp.asarray(x)))
     finally:
         sh._seq_fused2d = orig_f
-        final2d.final2d_px = orig_k
+        dimfuse.apply_filter_fused = orig_k
     assert fcalls == [True], fcalls  # fast path engaged
-    assert kcalls, "locals must ride the 3-touch px kernels"
+    assert kcalls, "locals must ride the shipping executor"
     want = scan_core.oracle_apply(spec, x.astype(np.float64))
     scale = np.abs(want).max()
     assert np.abs(got - want).max() <= 5e-6 * scale

@@ -4,8 +4,8 @@ host↔device sweeps with cross-chunk carries must be exact."""
 import numpy as np
 import pytest
 
-from recfilter_tpu import dimfuse, streaming
-from recfilter_tpu.spec import BorderMode, Dim, FilterSpec, Scan
+from recfilter import dimfuse, streaming
+from recfilter.spec import BorderMode, Dim, FilterSpec, Scan
 
 
 def _img(*shape, seed=0):
@@ -99,7 +99,7 @@ def test_streamed_chunk_smaller_than_order_rejected():
 def test_streamed_integer_exact(border, chunk):
     """Integer dtypes stream bit-exactly: the carry is the real shift-
     register state, not a float rank-k correction (SAT-style int32)."""
-    from recfilter_tpu import scan_core
+    from recfilter import scan_core
 
     spec = FilterSpec(
         "SI",
@@ -124,7 +124,7 @@ def test_streamed_integer_exact(border, chunk):
 
 def test_streamed_integer_second_order_chunk_axis():
     """Order-2 integer scan along the chunk axis (k-deep carry state)."""
-    from recfilter_tpu import scan_core
+    from recfilter import scan_core
 
     spec = FilterSpec(
         "SI2",

@@ -1,6 +1,6 @@
-"""Tiled (blocked MXU) executor vs the untiled oracle.
+"""Tiled (blocked matmul) executor vs the untiled oracle.
 
-The TPU analogs of the reference's end-to-end equivalence suite
+The analogs of the reference's end-to-end equivalence suite
 (``tests/README.md``): repeated causal, repeated anticausal, mixed
 causal/anticausal, 2-D and 3-D generic scan lists, dtype invariance — all
 with awkward tile widths that do not divide the extent.
@@ -9,8 +9,8 @@ with awkward tile widths that do not divide the extent.
 import numpy as np
 import pytest
 
-from recfilter_tpu import scan_core, tiling
-from recfilter_tpu.spec import BorderMode, Dim, FilterSpec, Scan
+from recfilter import scan_core, tiling
+from recfilter.spec import BorderMode, Dim, FilterSpec, Scan
 
 RTOL = 2e-5  # float32 comparisons vs float64 oracle
 
@@ -156,7 +156,7 @@ def test_clamped_border_tiled(causal):
 
 def test_clamped_border_2d_gaussian_shape():
     """Causal+anticausal clamped scans in both dims — the Gaussian app shape."""
-    from recfilter_tpu import iir
+    from recfilter import iir
 
     w = iir.gaussian_weights(2.0, 3)
     dims = (Dim("x", 24), Dim("y", 24))

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from recfilter_tpu.utils import image_io, timing
-from recfilter_tpu.utils.args import Arguments
-from recfilter_tpu.utils.testing import (
+from recfilter.utils import image_io, timing
+from recfilter.utils.args import Arguments
+from recfilter.utils.testing import (
     CheckResult,
     CheckResultVerbose,
     assert_close,
